@@ -1,0 +1,280 @@
+"""Kernel-operator backends — the single seam for every hot contraction.
+
+The PyTorch counterpart of ``repro.core.backend``. The contractions:
+
+  * ``gram_block``      — a K(X, Z) block (K_MM, the oracles)
+  * ``masked_quadform`` — Eq. 3's inner term K_Ji^T (K_JJ + lam n A)^{-1} K_Ji
+  * ``rls_scores``      — the Eq. 3 scores built on it
+  * ``knm_quadratic`` / ``knm_t`` — the CG matvec K_nM^T K_nM v and its
+    right-hand side K_nM^T y, never materializing K_nM
+  * ``knm_matvec``      — K(X, Z) v, the predict / Nystrom-KRR forward pass
+
+Two backends serve them:
+
+  * ``TorchBackend`` — the pure-torch row streamer, counterpart of
+    ``JnpBackend``. Complete (every method, ``mask=`` included) and runs on
+    whatever device its tensors are on. It is the port's own oracle and
+    what ``FitConfig(device="cpu")`` runs.
+  * ``CudaBackend``  — the hand-written CUDA kernels, counterpart of
+    ``PallasBackend``: ``gram_block`` is K1, ``knm_quadratic`` K2, ``knm_t``
+    K3 and ``knm_matvec`` K4. The Eq. 3 methods and the ``mask=`` panels
+    need kernels the port does not have yet (K5-K7) and raise
+    ``NotImplementedError`` naming them.
+
+Backends are frozen dataclasses: hashable and comparable by configuration.
+Selection is by instance, by registry name ("torch" | "cuda"), or None for
+``default_backend(device)``, which picks ``CudaBackend`` for data on a CUDA
+device and raises for data elsewhere: the CPU path is taken only when the
+caller names it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, ClassVar
+
+import torch
+
+from ..kernels.falkon_matvec import ops as falkon_ops
+from ..kernels.gram import ops as gram_ops
+from .gram import Kernel, blocked_cross, register_backend
+from .leverage import _chol_with_jitter
+
+Tensor = torch.Tensor
+KnmQuadraticOp = Callable[[Tensor], Tensor]
+
+#: rows per streamed block of ``TorchBackend`` (a (block, M) Gram slab).
+STREAM_BLOCK = 8192
+
+
+# ---------------------------------------------------------------------------
+# Protocol
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """Abstract kernel-operator backend (see module docstring)."""
+
+    name: ClassVar[str] = "abstract"
+
+    def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
+        """K(X, Z) of shape (n, m)."""
+        raise NotImplementedError
+
+    def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                        mask: Tensor, reg: Tensor) -> Tensor:
+        """q_i = K_Ji^T (K_JJ * mask + diag(reg))^{-1} K_Ji for each candidate.
+
+        ``z`` (Mbuf, d) are padded center coordinates, ``mask`` (Mbuf,) their
+        validity, ``reg`` (Mbuf,) the regularized diagonal (lam n A on valid
+        slots, 1 on padding). Returns (Rbuf,) fp32.
+        """
+        raise NotImplementedError
+
+    def rls_scores(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                   z_mask: Tensor, reg: Tensor, lamn: Tensor | float) -> Tensor:
+        """Eq. 3 scores (K_ii - K_Ji^T (K_JJ + lam n A)^{-1} K_Ji) / (lam n)
+        for each candidate row; arguments as in ``masked_quadform``, ``lamn``
+        the scalar lam * n. Unclipped. The default composes
+        ``masked_quadform`` with the family diagonal."""
+        kdiag = kernel.diag(x_cand)
+        quad = self.masked_quadform(kernel, x_cand, z, z_mask, reg)
+        return (kdiag - quad) / lamn
+
+    def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
+                      mask: Tensor | None = None) -> KnmQuadraticOp:
+        """The v -> K_nM^T (K_nM v) operator for CG.
+
+        The op takes an fp32 vector (M,) or an (M, k) panel: each Gram block
+        serves every column. ``mask`` — optional per-column row-exclusion
+        weights, (n,) or (n, k): column j computes ``K_nM^T diag(mask[:, j])
+        K_nM v_j``. ``mask=None`` is the unmasked program.
+        """
+        raise NotImplementedError
+
+    def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+              mask: Tensor | None = None) -> Tensor:
+        """K_nM^T y — the CG right-hand side(s); ``y`` (n,) -> (M,) or (n, k)
+        -> (M, k). ``mask`` (shaped like ``y``) computes K_nM^T (mask * y)."""
+        raise NotImplementedError
+
+    def knm_operators(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+                      mask: Tensor | None = None) -> tuple[KnmQuadraticOp, Tensor]:
+        """(quadratic op, K_nM^T y) together, ``mask`` applied to both."""
+        return (self.knm_quadratic(kernel, x, z, mask=mask),
+                self.knm_t(kernel, x, z, y, mask=mask))
+
+    def knm_matvec(self, kernel: Kernel, x: Tensor, z: Tensor, v: Tensor) -> Tensor:
+        """K(X, Z) v — ``v`` (M,) -> (n,), or an (M, k) panel -> (n, k)."""
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# Pure-torch reference backend
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchBackend(Backend):
+    """Pure-torch row-streaming backend (the port's numerical reference)."""
+
+    name: ClassVar[str] = "torch"
+    block: int = STREAM_BLOCK  # rows per streamed Gram block
+
+    def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
+        """K(X, Z) (n, m), streamed in row blocks."""
+        return blocked_cross(kernel, x, z, block=self.block)
+
+    def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                        mask: Tensor, reg: Tensor) -> Tensor:
+        """Eq. 3 quadratic form on the padded K_JJ via one Cholesky factor."""
+        m = mask.to(z.dtype)
+        kjj = kernel.cross(z, z) * (m[:, None] * m[None, :]) + torch.diag(reg.to(z.dtype))
+        g = kernel.cross(x_cand, z) * m[None, :]
+        chol = _chol_with_jitter(kjj)
+        v = torch.linalg.solve_triangular(chol, g.T, upper=False)
+        return torch.sum(v * v, dim=0)
+
+    def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
+                      mask: Tensor | None = None) -> KnmQuadraticOp:
+        """CG quadratic op over the row streamer; optional row ``mask``."""
+        from .falkon import local_knm_quadratic
+
+        return local_knm_quadratic(kernel, x, z, block=self.block, mask=mask)
+
+    def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+              mask: Tensor | None = None) -> Tensor:
+        """K_nM^T y, streamed; ``mask`` folds into the targets."""
+        from .falkon import local_knm_t
+
+        return local_knm_t(kernel, x, z, y, block=self.block, mask=mask)
+
+    def knm_matvec(self, kernel: Kernel, x: Tensor, z: Tensor, v: Tensor) -> Tensor:
+        """K(X, Z) v, streamed over row blocks."""
+        parts = [kernel.cross(x[i:i + self.block], z) @ v
+                 for i in range(0, x.shape[0], self.block)]
+        if not parts:
+            return v.new_zeros((0,) + tuple(v.shape[1:]))
+        return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# Hand-written CUDA kernel backend
+# ---------------------------------------------------------------------------
+
+
+def _not_yet(what: str, kernel_id: str, reference: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"CudaBackend.{what} needs {kernel_id} ({reference}), which the port has not "
+        "brought to CUDA yet; use TorchBackend for it")
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaBackend(Backend):
+    """The hand-written CUDA kernels (K1-K4); counterpart of ``PallasBackend``.
+
+    ``bf16=True`` rounds the operands of every Gram tile's x . z term to
+    bf16 (fp32 accumulation; norms, epilogue and contractions stay fp32);
+    expect ~1e-2 relative error on kernel values for unit-scale data.
+
+    Tensors on the CPU go to each kernel's plain version (that is how the
+    wrappers are built); the entry points never put data there unless the
+    caller asked for the CPU.
+    """
+
+    name: ClassVar[str] = "cuda"
+    bf16: bool = False
+
+    @staticmethod
+    def _params(kernel: Kernel) -> tuple[str, float]:
+        gram_ops.cuda_family_id(kernel.name)  # refuses a family without a CUDA epilogue
+        return kernel.name, float(kernel.sigma)
+
+    def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
+        """K(X, Z) (n, m) fp32 from K1."""
+        kind, sigma = self._params(kernel)
+        return gram_ops.gram(x, z, sigma, kind=kind, bf16=self.bf16)
+
+    def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                        mask: Tensor, reg: Tensor) -> Tensor:
+        """Not served yet: needs K6."""
+        raise _not_yet("masked_quadform", "K6",
+                       "repro/kernels/quadform/quadform.py quadform_pallas")
+
+    def rls_scores(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                   z_mask: Tensor, reg: Tensor, lamn: Tensor | float) -> Tensor:
+        """Not served yet: needs K5."""
+        raise _not_yet("rls_scores", "K5",
+                       "repro/kernels/rls_score/rls_score.py rls_score_pallas")
+
+    def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
+                      mask: Tensor | None = None) -> KnmQuadraticOp:
+        """CG quadratic op through K2; (M,) or (M, k) iterates."""
+        if mask is not None:
+            raise _not_yet("knm_quadratic(mask=...)", "K7",
+                           "repro/kernels/falkon_matvec/falkon_matvec.py "
+                           "falkon_matvec_masked_pallas")
+        kind, sigma = self._params(kernel)
+
+        def op(v: Tensor) -> Tensor:
+            return falkon_ops.falkon_matvec(x, z, v, sigma, kind=kind, bf16=self.bf16)
+
+        return op
+
+    def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+              mask: Tensor | None = None) -> Tensor:
+        """K_nM^T y through K3; (n,) -> (M,) or (n, k) -> (M, k)."""
+        if mask is not None:
+            raise _not_yet("knm_t(mask=...)", "K7",
+                           "repro/kernels/falkon_matvec/falkon_matvec.py "
+                           "falkon_matvec_masked_pallas")
+        kind, sigma = self._params(kernel)
+        return falkon_ops.knm_t(x, z, y, sigma, kind=kind, bf16=self.bf16)
+
+    def knm_matvec(self, kernel: Kernel, x: Tensor, z: Tensor, v: Tensor) -> Tensor:
+        """K(X, Z) v through K4; (M,) -> (n,) or (M, k) -> (n, k)."""
+        kind, sigma = self._params(kernel)
+        return falkon_ops.knm_matvec(x, z, v, sigma, kind=kind, bf16=self.bf16)
+
+
+# ---------------------------------------------------------------------------
+# Selection
+# ---------------------------------------------------------------------------
+
+
+def require_cuda_device(device: torch.device | str = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``, raising ``RuntimeError`` if it names
+    a CUDA device and none is present (never a silent move to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was requested but no CUDA device is present; "
+            "ask for the CPU explicitly (FitConfig(device='cpu') or backend='torch') "
+            "to run the plain torch path")
+    return device
+
+
+def default_backend(device: torch.device | str | None = None) -> Backend:
+    """``CudaBackend`` for data on a CUDA device; anything else raises.
+
+    ``device`` is where the data lives (None means the default, the card).
+    Data on the CPU runs only when the caller names the CPU path
+    (``TorchBackend`` / ``backend="torch"`` / ``FitConfig(device="cpu")``).
+    """
+    device = require_cuda_device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise RuntimeError(
+            f"no backend is chosen by default for data on {device}; pass "
+            "backend='torch' (or FitConfig(device='cpu')) to run on the CPU")
+    return CudaBackend()
+
+
+def backend_for_device(device: torch.device | str) -> Backend:
+    """The backend an entry point runs on ``device``: ``CudaBackend`` on a
+    CUDA device (raising if none is present), ``TorchBackend`` on the CPU."""
+    device = require_cuda_device(device)
+    return CudaBackend() if device.type == "cuda" else TorchBackend()
+
+
+register_backend("torch", TorchBackend)
+register_backend("cuda", CudaBackend)
