@@ -1,10 +1,10 @@
 """sklearn-style estimators over the paper's solvers — the second slot.
 
-Part of the counterpart of ``repro.api.estimators``:
+Part of the counterpart of ``repro.api.estimators``; the sampler slot
+defaults to ``BlessSampler()``, so ``FalkonRegressor()`` is FALKON-BLESS:
 
     est = FalkonRegressor(kernel="gaussian", sigma=4.0,
-                          sampler=UniformSampler(m=10_000, weights="identity",
-                                                 replace=False),
+                          sampler=BlessSampler(lam=1e-4, m_cap=10_000),
                           config=FitConfig(lam=1e-6, iters=20))
     est.fit(X, y)          # -> est  (learned attrs get a trailing underscore)
     est.predict(X)         # (n,) or (n, k), through the backend seam
@@ -28,7 +28,7 @@ from ..core.falkon import FalkonModel, falkon_fit
 from ..core.gram import BackendLike, Kernel, make_kernel, resolve_backend
 from ..core.leverage import CenterSet
 from ..core.nystrom import exact_krr, nystrom_krr
-from .samplers import Sampler
+from .samplers import BlessSampler, Sampler
 
 Tensor = torch.Tensor
 
@@ -85,8 +85,8 @@ class _KrrEstimator:
         """Predictions through the backend seam ((n,) or (n, k)).
 
         With ``return_std=True`` returns ``(pred, std)``, ``std`` the (n,)
-        square root of ``predictive_variance`` (needs ``rls_scores``: on
-        the CUDA backend that is K5, not ported yet, and raises).
+        square root of ``predictive_variance`` (the seam's ``rls_scores``:
+        on the card K5 up to 1024 centers, K1 + K6 above).
         """
         if self.model_ is None:
             raise RuntimeError(f"{type(self).__name__} is not fitted; call .fit first")
@@ -116,28 +116,20 @@ class _KrrEstimator:
         return self.config.seed if key is None else key
 
 
-def _require_sampler(sampler: Sampler | None, who: str) -> Sampler:
-    if sampler is None:
-        raise ValueError(
-            f"{who} has no default sampler yet: the reference defaults to BlessSampler, "
-            "which arrives with slice 2 of the port (the sampler). Pass one, e.g. "
-            "sampler=UniformSampler(m, weights='identity', replace=False)")
-    return sampler
-
-
 class FalkonRegressor(_KrrEstimator):
     """FALKON (Sec. 3) with a pluggable center sampler.
 
-    The sampled ``CenterSet``'s weights become the preconditioner's A
-    (Def. 2). ``warm_start=True`` keeps the sampled centers across refits on
-    same-shaped X.
+    ``sampler`` fills the pipeline's first slot (defaults to
+    ``BlessSampler()``, i.e. FALKON-BLESS); the sampled ``CenterSet``'s
+    weights become the preconditioner's A (Def. 2). ``warm_start=True``
+    keeps the sampled centers across refits on same-shaped X.
     """
 
     def __init__(self, kernel: Kernel | str = "gaussian", *,
                  sampler: Sampler | None = None, sigma: float = 1.0,
                  config: FitConfig | None = None, warm_start: bool = False):
         super().__init__(kernel, sigma=sigma, config=config)
-        self.sampler = _require_sampler(sampler, "FalkonRegressor")
+        self.sampler = sampler if sampler is not None else BlessSampler()
         self.warm_start = warm_start
         self.centers_: Tensor | None = None
         self.a_diag_: Tensor | None = None
@@ -182,7 +174,7 @@ class NystromRegressor(_KrrEstimator):
                  sampler: Sampler | None = None, sigma: float = 1.0,
                  config: FitConfig | None = None):
         super().__init__(kernel, sigma=sigma, config=config)
-        self.sampler = _require_sampler(sampler, "NystromRegressor")
+        self.sampler = sampler if sampler is not None else BlessSampler()
         self.centers_: Tensor | None = None
         self.center_set_: CenterSet | None = None
 

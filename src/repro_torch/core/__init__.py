@@ -1,6 +1,7 @@
-"""The solver layer of the port: kernels and their backends, FALKON, the
-direct oracles. All hot contractions go through the ``Backend`` seam in
-``repro_torch.core.backend`` (the pure-torch streamer or the CUDA kernels)."""
+"""The solver layer of the port: kernels and their backends, the BLESS
+ladders and the related-work samplers, FALKON, the direct oracles. All hot
+contractions go through the ``Backend`` seam in ``repro_torch.core.backend``
+(the pure-torch streamer or the CUDA kernels)."""
 from .gram import (
     Kernel,
     KernelFamily,
@@ -14,11 +15,23 @@ from .gram import (
     sq_dists,
 )
 from .backend import Backend, CudaBackend, TorchBackend, default_backend
-from .leverage import CenterSet, effective_dim, exact_rls, uniform_center_set
+from .leverage import (
+    CenterSet,
+    approx_rls,
+    approx_rls_all,
+    effective_dim,
+    exact_rls,
+    uniform_center_set,
+)
+from .bless import BlessLevel, BlessResult, bless, bless_r, lam_ladder, theory_constants
+from .baselines import recursive_rls, squeak, two_pass, uniform_centers
+from .chen_yang import default_sketch_size, fast_spectral_rls
+from .sampling import categorical, gumbel_topk
 from .falkon import (
     FalkonModel,
     Preconditioner,
     cg,
+    falkon_bless_fit,
     falkon_fit,
     local_knm_quadratic,
     local_knm_t,
@@ -31,8 +44,12 @@ __all__ = [
     "kernel_family_names", "register_kernel_family",
     "Backend", "TorchBackend", "CudaBackend",
     "backend_names", "default_backend", "register_backend", "resolve_backend",
-    "CenterSet", "effective_dim", "exact_rls", "uniform_center_set",
-    "FalkonModel", "Preconditioner", "cg", "falkon_fit",
+    "CenterSet", "approx_rls", "approx_rls_all", "effective_dim", "exact_rls",
+    "uniform_center_set",
+    "BlessLevel", "BlessResult", "bless", "bless_r", "lam_ladder", "theory_constants",
+    "recursive_rls", "squeak", "two_pass", "uniform_centers", "default_sketch_size",
+    "fast_spectral_rls", "categorical", "gumbel_topk",
+    "FalkonModel", "Preconditioner", "cg", "falkon_bless_fit", "falkon_fit",
     "local_knm_quadratic", "local_knm_t", "make_preconditioner",
     "exact_krr", "nystrom_krr",
 ]

@@ -17,9 +17,10 @@ Two backends serve them:
     what ``FitConfig(device="cpu")`` runs.
   * ``CudaBackend``  — the hand-written CUDA kernels, counterpart of
     ``PallasBackend``: ``gram_block`` is K1, ``knm_quadratic`` K2, ``knm_t``
-    K3 and ``knm_matvec`` K4. The Eq. 3 methods and the ``mask=`` panels
-    need kernels the port does not have yet (K5-K7) and raise
-    ``NotImplementedError`` naming them.
+    K3, ``knm_matvec`` K4, ``rls_scores`` the fused Eq. 3 score K5 (up to
+    ``MAX_FUSED_M`` centers) and ``masked_quadform`` K1 + the quadratic form
+    K6. The ``mask=`` panels need K7, which the port does not have yet, and
+    raise ``NotImplementedError`` naming it.
 
 Backends are frozen dataclasses: hashable and comparable by configuration.
 Selection is by instance, by registry name ("torch" | "cuda"), or None for
@@ -36,6 +37,8 @@ import torch
 
 from ..kernels.falkon_matvec import ops as falkon_ops
 from ..kernels.gram import ops as gram_ops
+from ..kernels.quadform import ops as quadform_ops
+from ..kernels.rls_score import ops as rls_ops
 from .gram import Kernel, blocked_cross, register_backend
 from .leverage import _chol_with_jitter
 
@@ -44,6 +47,10 @@ KnmQuadraticOp = Callable[[Tensor], Tensor]
 
 #: rows per streamed block of ``TorchBackend`` (a (block, M) Gram slab).
 STREAM_BLOCK = 8192
+#: largest (chunk, Mbuf) fp32 Gram slab ``CudaBackend.masked_quadform``
+#: builds per K6 call (the whole (R, M) block at the predictive-variance
+#: shape, 10^5 x 10^4, would be 4 GB).
+QUADFORM_SLAB_BYTES = 1 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +178,12 @@ def _not_yet(what: str, kernel_id: str, reference: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(Backend):
-    """The hand-written CUDA kernels (K1-K4); counterpart of ``PallasBackend``.
+    """The hand-written CUDA kernels (K1-K6); counterpart of ``PallasBackend``.
 
-    ``bf16=True`` rounds the operands of every Gram tile's x . z term to
-    bf16 (fp32 accumulation; norms, epilogue and contractions stay fp32);
-    expect ~1e-2 relative error on kernel values for unit-scale data.
+    ``bf16=True`` rounds the operands of every Gram tile's x . z term, and
+    of the G W product of K5 and K6, to bf16 (fp32 accumulation; norms,
+    epilogues and the other contractions stay fp32); expect ~1e-2 relative
+    error on kernel values for unit-scale data.
 
     Tensors on the CPU go to each kernel's plain version (that is how the
     wrappers are built); the entry points never put data there unless the
@@ -195,17 +203,40 @@ class CudaBackend(Backend):
         kind, sigma = self._params(kernel)
         return gram_ops.gram(x, z, sigma, kind=kind, bf16=self.bf16)
 
+    def _inverse(self, kernel: Kernel, z: Tensor, mask: Tensor,
+                 reg: Tensor) -> tuple[Tensor, Tensor]:
+        """(mask as fp32, W = (K_JJ * mask + diag(reg))^{-1}): K1 builds K_JJ,
+        the health ladder factors it, and ``cholesky_solve`` forms the
+        explicit W the kernels contract against (M ~ d_eff, so it is cheap;
+        the reference forms it the same way, outside its kernels)."""
+        m = mask.to(torch.float32)
+        kjj = self.gram_block(kernel, z, z) * (m[:, None] * m[None, :]) + torch.diag(
+            reg.to(torch.float32))
+        eye = torch.eye(kjj.shape[0], dtype=kjj.dtype, device=kjj.device)
+        return m, torch.cholesky_solve(eye, _chol_with_jitter(kjj))
+
     def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
                         mask: Tensor, reg: Tensor) -> Tensor:
-        """Not served yet: needs K6."""
-        raise _not_yet("masked_quadform", "K6",
-                       "repro/kernels/quadform/quadform.py quadform_pallas")
+        """Eq. 3 quadratic form: K1 Gram slabs of at most
+        ``QUADFORM_SLAB_BYTES``, masked, each contracted by K6 against the
+        explicit (Mbuf, Mbuf) inverse."""
+        m, w = self._inverse(kernel, z, mask, reg)
+        rows = max(1, QUADFORM_SLAB_BYTES // (4 * max(1, z.shape[0])))
+        parts = [quadform_ops.quadform(self.gram_block(kernel, x_cand[i:i + rows], z)
+                                       * m[None, :], w, bf16=self.bf16)
+                 for i in range(0, x_cand.shape[0], rows)]
+        return torch.cat(parts) if parts else x_cand.new_zeros((0,))
 
     def rls_scores(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
                    z_mask: Tensor, reg: Tensor, lamn: Tensor | float) -> Tensor:
-        """Not served yet: needs K5."""
-        raise _not_yet("rls_scores", "K5",
-                       "repro/kernels/rls_score/rls_score.py rls_score_pallas")
+        """Eq. 3 scores through the fused K5 (Gram row -> quadratic form ->
+        score in one launch) up to ``MAX_FUSED_M`` centers; above it the
+        composition of ``masked_quadform`` (K1 + K6) with the diagonal."""
+        if z.shape[0] > rls_ops.MAX_FUSED_M:
+            return super().rls_scores(kernel, x_cand, z, z_mask, reg, lamn)
+        kind, sigma = self._params(kernel)
+        m, w = self._inverse(kernel, z, z_mask, reg)
+        return rls_ops.rls_score(x_cand, z, w, m, lamn, sigma, kind=kind, bf16=self.bf16)
 
     def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
                       mask: Tensor | None = None) -> KnmQuadraticOp:

@@ -204,7 +204,8 @@ class FalkonModel:
         """GP-style Nystrom posterior variance ``k(x,x) - k_xM (K_MM + lam n
         A)^{-1} k_Mx`` per row of ``x``, = lam n times the ridge leverage
         score of x against the centers (the seam's ``rls_scores``; on
-        ``CudaBackend`` that needs K5 and raises). Clipped at 0."""
+        ``CudaBackend`` the fused K5 up to 1024 centers, K1 + K6 above).
+        Clipped at 0."""
         if self.lam is None or self.n_train is None:
             raise ValueError(
                 "predictive_variance needs fit metadata (lam, n_train); this "
@@ -288,3 +289,25 @@ def falkon_fit(
     return FalkonModel(centers=centers, alpha=alpha, kernel=kernel, backend=backend,
                        diagnostics=health.SolveDiagnostics(resid),
                        lam=float(lam), n_train=n, a_diag=a_diag)
+
+
+def falkon_bless_fit(key: int | torch.Generator, kernel: Kernel, x: Tensor, y: Tensor,
+                     lam_bless: float, lam_falkon: float, *, iters: int = 20,
+                     q2: float = 3.0, m_cap: int | None = None, backend: BackendLike = None,
+                     callback=None, device: str = "cuda") -> FalkonModel:
+    """FALKON-BLESS end to end (the paper's lam_bless >> lam_falkon trick,
+    Sec. 4). A thin shim over the ``repro_torch.api`` front door, equivalent
+    to ``FalkonRegressor(sampler=BlessSampler(lam=lam_bless, ...))``, so the
+    sampler + solver composition has one implementation. ``device`` is the
+    estimators' ``FitConfig.device`` (the card unless the caller asks for
+    the CPU). The import is at call time: api sits above core.
+    """
+    from ..api.estimators import FalkonRegressor, FitConfig
+    from ..api.samplers import BlessSampler
+
+    est = FalkonRegressor(
+        kernel=kernel,
+        sampler=BlessSampler(lam=lam_bless, q2=q2, m_cap=m_cap),
+        config=FitConfig(lam=lam_falkon, iters=iters, backend=backend, device=device),
+    )
+    return est.fit(x, y, key=key, callback=callback).model_

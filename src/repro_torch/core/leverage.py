@@ -1,9 +1,12 @@
-"""Weighted Nystrom center sets and the exact ridge leverage scores (Eq. 1).
+"""Ridge leverage scores: exact (Eq. 1) and Nystrom-approximate (Eq. 3).
 
-Part of the counterpart of ``repro.core.leverage``: the ``CenterSet``
-convention (padded buffer + validity mask), ``uniform_center_set``, the
-PSD helpers, and the O(n^3) oracles ``exact_rls`` / ``effective_dim``. The
-approximate Eq. 3 scores come with the BLESS sampler.
+The counterpart of ``repro.core.leverage``: the ``CenterSet`` convention
+(padded buffer + validity mask), ``uniform_center_set``, the PSD helpers,
+the O(n^3) oracles ``exact_rls`` / ``effective_dim``, and the approximate
+scores ``approx_rls`` / ``approx_rls_all``. The Eq. 3 inner contraction
+goes through the ``Backend.rls_scores`` seam (``repro_torch.core.backend``);
+the scorer is the reference's host path (``_approx_rls_host``), since
+PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from .gram import Kernel
+from .gram import BackendLike, Kernel, resolve_backend
 from .health import chol_with_jitter_ladder
 
 Tensor = torch.Tensor
@@ -41,6 +44,46 @@ class CenterSet(NamedTuple):
             mask=torch.zeros((mbuf,), dtype=torch.bool),
             count=torch.tensor(0, dtype=torch.int64),
         )
+
+
+def approx_rls(kernel: Kernel, x_cand: Tensor, cand_mask: Tensor, x_all: Tensor,
+               centers: CenterSet, lam: float, *, backend: BackendLike = None) -> Tensor:
+    """Approximate leverage scores (Eq. 3) of candidates against (J, A).
+
+      l~_J(i, lam) = (lam n)^{-1} (K_ii - K_Ji^T (K_JJ + lam n A)^{-1} K_Ji)
+
+    n is the *full* dataset size (x_all.shape[0]); candidates/centers live
+    on padded buffers with masks. Invalid centers are neutralized by zeroing
+    their Gram rows/cols and pinning the regularized diagonal to 1.
+    Returns (Rbuf,) scores clipped to [_SCORE_FLOOR, 1]; entries at invalid
+    candidates are _SCORE_FLOOR.
+    """
+    backend = resolve_backend(backend, device=x_all.device)
+    n = x_all.shape[0]
+    lamn = float(lam) * n
+    if int(centers.count) > 0:
+        idx = centers.idx.to(x_all.device)
+        mask = centers.mask.to(x_all.device)
+        reg = torch.where(mask, lamn * centers.weight.to(x_all.device),
+                          torch.ones_like(centers.weight, device=x_all.device))
+        scores = backend.rls_scores(kernel, x_cand, x_all[idx], mask, reg, lamn)
+    else:
+        scores = kernel.diag(x_cand) / lamn
+    scores = torch.clamp(scores, _SCORE_FLOOR, 1.0)
+    return torch.where(cand_mask.to(scores.device), scores,
+                       torch.full_like(scores, _SCORE_FLOOR))
+
+
+def approx_rls_all(kernel: Kernel, x_all: Tensor, centers: CenterSet, lam: float, *,
+                   block: int = 4096, backend: BackendLike = None) -> Tensor:
+    """Eq. 3 scores for every i in [n], blocked over rows (used by Fig. 1)."""
+    backend = resolve_backend(backend, device=x_all.device)
+    parts = [approx_rls(kernel, x_all[i:i + block],
+                        torch.ones((min(block, x_all.shape[0] - i),), dtype=torch.bool,
+                                   device=x_all.device),
+                        x_all, centers, lam, backend=backend)
+             for i in range(0, x_all.shape[0], block)]
+    return torch.cat(parts) if parts else x_all.new_zeros((0,))
 
 
 def uniform_center_set(idx: Tensor, n: int, mbuf: int) -> CenterSet:

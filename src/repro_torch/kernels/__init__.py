@@ -7,6 +7,8 @@ the sources on first use; importing this package compiles nothing.
 """
 from .falkon_matvec import ops as falkon_matvec_ops
 from .gram import ops as gram_ops
+from .quadform import ops as quadform_ops
+from .rls_score import ops as rls_score_ops
 
 #: every kernel wrapper, by the name the launch counts are reported under.
 WRAPPERS = {
@@ -14,6 +16,8 @@ WRAPPERS = {
     "falkon_matvec": falkon_matvec_ops.falkon_matvec,
     "knm_t": falkon_matvec_ops.knm_t,
     "knm_matvec": falkon_matvec_ops.knm_matvec,
+    "rls_score": rls_score_ops.rls_score,
+    "quadform": quadform_ops.quadform,
 }
 
 

@@ -107,9 +107,51 @@ void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v
   knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
 }
 
+// K5: out (n,) = (kdiag - g^T w g) / lamn per row, g = k(x, z) * zmask.
+void rls_score(const at::Tensor& x, const at::Tensor& z, const at::Tensor& w,
+               const at::Tensor& zmask, const at::Tensor& kdiag, at::Tensor& out, int64_t fam,
+               double s, double lamn, bool bf16) {
+  check(x, "x");
+  check(z, "z");
+  check(w, "w");
+  check(zmask, "zmask");
+  check(kdiag, "kdiag");
+  check(out, "out");
+  TORCH_CHECK(z.size(0) <= 1024, "rls_score takes at most 1024 centers");
+  if (x.size(0) == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  repro::launch_rls_score(x.data_ptr<float>(), z.data_ptr<float>(), w.data_ptr<float>(),
+                          zmask.data_ptr<float>(), kdiag.data_ptr<float>(),
+                          out.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1),
+                          static_cast<int>(fam), static_cast<float>(s),
+                          static_cast<float>(lamn), bf16, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K6: out (n,) = rowsum((g w) * g) for g (n, m), w (m, m); partial is
+// (ceil(m / 64), n) scratch, one row per 64-column tile of w.
+void quadform(const at::Tensor& g, const at::Tensor& w, at::Tensor& partial, at::Tensor& out,
+              bool bf16) {
+  check(g, "g");
+  check(w, "w");
+  check(partial, "partial");
+  check(out, "out");
+  if (g.size(0) == 0 || g.size(1) == 0) return;
+  const c10::cuda::CUDAGuard guard(g.device());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  repro::launch_quadform_partial(g.data_ptr<float>(), w.data_ptr<float>(),
+                                 partial.data_ptr<float>(), dim(g, 0), dim(g, 1), bf16, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_reduce_partials(partial.data_ptr<float>(), out.data_ptr<float>(),
+                                static_cast<long long>(g.size(0)), dim(partial, 0), st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gram", &gram, "K1: dense Gram matrix");
   m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
   m.def("knm_t", &knm_t, "K3: K_nM^T Y, fixed-order two-stage sum");
   m.def("falkon_matvec", &falkon_matvec, "K2: K_nM^T K_nM V");
+  m.def("rls_score", &rls_score, "K5: fused Eq. 3 score");
+  m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
 }

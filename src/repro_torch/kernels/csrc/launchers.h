@@ -26,7 +26,19 @@ void launch_knm_t_partial(const float* x, const float* z, const float* y, float*
                           float s, bool bf16, cudaStream_t st);
 
 // Second half: out[i] = sum over chunks, in index order, of partial[chunk, i].
+// Also K6's second launch (the chunks are W column tiles there).
 void launch_reduce_partials(const float* partial, float* out, long long len, int n_chunks,
                             cudaStream_t st);
+
+// K5: out (n,) = (kdiag - rowsum((G w) * G)) / lamn with G = k(x (n, d), z (m, d))
+// * zmask; w (m, m), zmask (m,), kdiag (n,); m <= 1024.
+void launch_rls_score(const float* x, const float* z, const float* w, const float* zmask,
+                      const float* kdiag, float* out, int n, int m, int d, int fam, float s,
+                      float lamn, bool bf16, cudaStream_t st);
+
+// K6, first half: partial (ceil(m / 64), n) holds, per 64-column tile of
+// w (m, m), each row's rowsum((g w)[:, tile] * g[:, tile]) for g (n, m).
+void launch_quadform_partial(const float* g, const float* w, float* partial, int n, int m,
+                             bool bf16, cudaStream_t st);
 
 }  // namespace repro

@@ -300,12 +300,15 @@ def test_torch_backend_mask_panels_match_reference():
 
 
 def test_cuda_backend_names_the_kernels_it_does_not_have_yet():
+    # K5 and K6 have landed: the Eq. 3 methods compute (on CPU tensors through
+    # the kernels' plain versions); the mask panels still need K7.
     be, k = CudaBackend(), core.make_kernel()
-    x = torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="K6"):
-        be.masked_quadform(k, x, x, torch.ones(4, dtype=torch.bool), torch.ones(4))
-    with pytest.raises(NotImplementedError, match="K5"):
-        be.rls_scores(k, x, x, torch.ones(4, dtype=torch.bool), torch.ones(4), 1.0)
+    x = torch.from_numpy(_data(4, 2))
+    mask, reg = torch.ones(4, dtype=torch.bool), torch.full((4,), 2.0)
+    torch.testing.assert_close(be.masked_quadform(k, x, x, mask, reg),
+                               TorchBackend().masked_quadform(k, x, x, mask, reg))
+    torch.testing.assert_close(be.rls_scores(k, x, x, mask, reg, 2.0),
+                               TorchBackend().rls_scores(k, x, x, mask, reg, 2.0))
     with pytest.raises(NotImplementedError, match="K7"):
         be.knm_quadratic(k, x, x, mask=torch.ones(4))
     with pytest.raises(NotImplementedError, match="K7"):

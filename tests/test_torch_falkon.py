@@ -21,7 +21,8 @@ import torch
 import repro.api as japi
 import repro.core as jcore
 from repro_torch import core
-from repro_torch.api import ExactKrr, FalkonRegressor, FitConfig, NystromRegressor, UniformSampler
+from repro_torch.api import (BlessSampler, ExactKrr, FalkonRegressor, FitConfig, NystromRegressor,
+                             UniformSampler)
 from repro_torch.interop import center_set_from_numpy, model_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,10 +127,8 @@ def test_row_mask_fit_matches_reference():
 
 def test_estimator_surface():
     x, y, xte, yte = _problem(n=600, seed=7)
-    with pytest.raises(ValueError, match="slice 2"):
-        FalkonRegressor()
-    with pytest.raises(ValueError, match="slice 2"):
-        NystromRegressor()
+    assert FalkonRegressor().sampler == BlessSampler()
+    assert NystromRegressor().sampler == BlessSampler()
     seen = []
     est = FalkonRegressor(sigma=2.0, sampler=UniformSampler(150, weights="identity"),
                           config=CPU, warm_start=True)
@@ -151,24 +150,37 @@ def test_estimator_surface():
 def test_default_device_estimator_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, y, _, _ = _problem(n=64)
-    est = FalkonRegressor(sampler=UniformSampler(8))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        est.fit(x, y)
+    for est in (FalkonRegressor(sampler=UniformSampler(8)), FalkonRegressor(),
+                NystromRegressor()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            est.fit(x, y)
 
 
 # -- chip_smoke.py rehearsed on the CPU ------------------------------------------------
 
 
-def test_chip_smoke_phases_rehearse_on_the_cpu():
-    worst = chip_smoke.kernel_parity("cpu", n=301, m=40, d=18)
+def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
+    from repro_torch.kernels import rls_score_ops
+
+    worst = chip_smoke.kernel_parity("cpu", n=301, m=40, d=18, score_ms=(1, 40, 70),
+                                     quad_ms=(40, 65))
     assert set(worst) == set(chip_smoke.KERNELS)
     res = chip_smoke.end_to_end("cpu", n_train=1536, n_test=512, m=120, iters=10,
-                                refit_rows=1024)
+                                refit_rows=1024, referee_rows=256)
     assert res["test_error"] < 0.2 and res["refit"]["rows"] == 1024
-    calls = chip_smoke.main_path_calls(res.pop("tensors"), sigma=4.0)
-    assert [c[0] for c in calls] == list(chip_smoke.KERNELS)
+    assert res["variance"]["rows"] == 256 and res["variance"]["min_var"] >= 0
+    tensors = res.pop("tensors")
+    # a fused-kernel budget of 32 centers sends the ladder's later levels
+    # down the K1 + K6 composition, as levels above 1 024 centers go on the card
+    monkeypatch.setattr(rls_score_ops, "MAX_FUSED_M", 32)
+    fb = chip_smoke.bless_end_to_end("cpu", tensors, lam_bless=1e-2, m_cap=400,
+                                     score_rows=256)
+    assert fb["repeat_bit_identical"] and fb["levels_above_1024"] > 0
+    assert [lvl["lam"] for lvl in fb["levels"]][-1] == 1e-2
+    calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=fb.pop("tensors"))
+    assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + ["quadform@ladder"]
     errs = chip_smoke.main_path_parity(calls)
-    assert set(errs) == set(chip_smoke.KERNELS)
+    assert set(errs) == set(chip_smoke.KERNELS) | {"quadform@ladder"}
     for name, n, m, d, k, _, _, library in calls:
         out = library()
         assert bool(torch.all(torch.isfinite(out)))
@@ -181,6 +193,13 @@ def test_chip_smoke_bounds():
     assert by == "bytes" and ms == pytest.approx(4 * (2 * 10_000 * 18 + 10 ** 8) / 3.35e12 * 1e3)
     ms, by = chip_smoke.bound("falkon_matvec", 10 ** 6, 10 ** 4, 18, 1)
     assert by == "operations" and ms == pytest.approx(10 ** 10 * 45 / 67e12 * 1e3)
+    # K6 at the predictive-variance shape and K5 at a full ladder level are
+    # bound by the G W product's fp32 operations
+    ms, by = chip_smoke.bound("quadform", 10 ** 5, 10 ** 4, 18, 1)
+    assert by == "operations" and ms == pytest.approx((2e13 + 2e9) / 67e12 * 1e3)
+    ms, by = chip_smoke.bound("rls_score", 30_000, 1024, 18, 1)
+    ops = 30_000 * 1024 * (41 + 2 * 1024 + 2)
+    assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -122,8 +122,11 @@ def test_cpu_path_counts_no_launches():
     fo.falkon_matvec(x, z, v)
     fo.knm_t(x, z, y)
     fo.knm_matvec(x, z, v)
+    w = torch.eye(z.shape[0])
+    kernels.rls_score_ops.rls_score(x, z, w, torch.ones(z.shape[0], dtype=torch.bool), 1.0)
+    kernels.quadform_ops.quadform(go.gram(x, z), w)
     assert kernels.launch_counts() == {"gram": 0, "falkon_matvec": 0, "knm_t": 0,
-                                       "knm_matvec": 0}
+                                       "knm_matvec": 0, "rls_score": 0, "quadform": 0}
 
 
 def test_wrappers_refuse_mixed_or_unsupported_devices():
@@ -194,7 +197,7 @@ def test_every_launcher_is_defined_against_its_declaration():
     # PyTorch header; only binding.cpp does.
     names = _launchers()
     assert names == ["launch_gram", "launch_knm_matvec", "launch_knm_t_partial",
-                     "launch_reduce_partials"]
+                     "launch_reduce_partials", "launch_rls_score", "launch_quadform_partial"]
     pkg = build.CSRC.parent
     cu = {s: (pkg / s).read_text() for s in build.SOURCES if s.endswith(".cu")}
     for name in names:
@@ -215,5 +218,5 @@ def test_binding_checks_every_launch():
         stmt_end = text.index(";", end)
         after = text[stmt_end + 1:].lstrip()
         assert after.startswith("C10_CUDA_KERNEL_LAUNCH_CHECK();"), text[end - 40:stmt_end + 60]
-    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec"):
+    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec", "rls_score", "quadform"):
         assert f'm.def("{name}", &{name}' in text
