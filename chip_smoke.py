@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's FALKON and FALKON-BLESS paths on one H100.
+"""Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV and classifier
+paths on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
 
@@ -7,13 +8,17 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
 
   1. probe      card name, capability (must be (9, 0)), nvidia-smi name and
                 power limit, CUDA version; TF32 off for matmuls and cuDNN.
-  2. build      compile the six CUDA kernels from the sources in this checkout.
+  2. build      compile the seven CUDA kernels from the sources in this checkout.
   3. parity     each kernel against its plain PyTorch version on the card, at
                 ragged shapes, all five kernel families, plus bf16 on the
                 gaussian family: K1 gram, K2 falkon_matvec, K3 knm_t, K4
                 knm_matvec at n = 70 001, M = 1 000, d = 18 (k vector and 3);
-                K5 rls_score at R = 70 001, M in {1, 1000, 1024}; K6 quadform
-                at n = 70 001, m in {1 000, 4 097}.
+                K7 falkon_matvec_masked there with a vector and an (n,) mask,
+                k = 3 and k = 40 with 0/1 panels, fractional weights and an
+                (n,) mask broadcast to the panel; an all-zeros mask must give
+                exactly 0 and an all-ones mask K2's result bit for bit; K5
+                rls_score at R = 70 001, M in {1, 1000, 1024}; K6 quadform at
+                n = 70 001, m in {1 000, 4 097}.
   4. uniform    FalkonRegressor + UniformSampler at the scale of the paper's
                 SUSY experiment (d = 18, n_train = 10^6 cut from 5 * 10^6 for
                 the time limit, n_test = 10^5, M = 10^4, sigma = 4, lam = 1e-6,
@@ -42,10 +47,31 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 events beside its bound and a PyTorch yardstick call: K5 at
                 the largest ladder level with at most 1 024 centers, K6 at the
                 predictive-variance shape (10^5 x 10^4) and at the largest
-                ladder level above 1 024 centers, if there is one.
+                ladder level above 1 024 centers, if there is one, and K7 at
+                the sweep's shape (10^6 rows, the BLESS M, phase 7's 5-fold
+                mask).
+  7. cv         exact k-fold CV through the front door on the same data and
+                phase 5's BLESS center set: KFoldSweep(folds=5, lams=(1e-5,
+                1e-6, 1e-7), iters=20), counts reset just before the sweep and
+                read just after. Per-fold scores, best lam, the sweep's time
+                beside one naive per-fold refit's (and the naive grid's
+                estimate, folds x lams x that time; printed, not gated). Gates:
+                a second run repeats fold ids and scores bit for bit; on the
+                first 65 536 rows with UniformSampler(m=2048) centers at lam =
+                1e-3, each fold's score of a 4-fold sweep agrees within 1e-4
+                relative with a naive CudaBackend refit on that fold's
+                training rows, both solves converged (residual reductions
+                printed); the mask tax, K7 / K2 at the sweep's shape (k = 5),
+                at most 1.15 (tools/check_mask_tax.py's bound), timed in turns.
+  8. classifier FalkonClassifier(FitConfig(lam=1e-6, iters=20)) on the same
+                data and center set, counts reset just before the fit and read
+                after the test predictions. Gates: test accuracy within 1e-3
+                of 1 - phase 5's FALKON-BLESS test error (same centers, lam and
+                iterations), and the two margin columns negatives of each
+                other to 1e-5 of max|margin| (CG is homogeneous in b).
 
-Tolerances: Gram 2e-5 absolute; K_nM contractions and the quadratic form
-1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
+Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
+quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
 form); bf16 3e-2 * max|ref|; end-to-end predictions and variances 1e-3 *
 max (beyond the fp32 TorchBackend's own distance from the fp64 referee).
 Any failed phase exits non-zero. The line before the last is the kernels'
@@ -83,6 +109,8 @@ KERNELS = {
              "src/repro/kernels/gram/gram.py:45"),
     "falkon_matvec": ("src/repro_torch/kernels/falkon_matvec/falkon_matvec.cu",
                       "src/repro/kernels/falkon_matvec/falkon_matvec.py:93"),
+    "falkon_matvec_masked": ("src/repro_torch/kernels/falkon_matvec/falkon_matvec.cu",
+                             "src/repro/kernels/falkon_matvec/falkon_matvec.py:139"),
     "knm_t": ("src/repro_torch/kernels/falkon_matvec/falkon_matvec.cu",
               "src/repro/kernels/falkon_matvec/falkon_matvec.py:184"),
     "knm_matvec": ("src/repro_torch/kernels/falkon_matvec/falkon_matvec.cu",
@@ -96,6 +124,11 @@ KERNELS = {
 #: ladder level holds more than 1 024 distinct centers).
 UNIFORM_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec", "quadform")
 BLESS_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec", "rls_score")
+CV_PATH = ("gram", "falkon_matvec_masked", "knm_t", "knm_matvec")
+CLASSIFIER_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec")
+#: K7 / K2 at the same shape, both timed in the same run (tools/check_mask_tax.py).
+MASK_TAX_BOUND = 1.15
+CV_RTOL = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -229,6 +262,14 @@ def kernel_parity(device, *, n: int = 70_001, m: int = 1_000, d: int = 18, k: in
     z = torch.randn((m, d), generator=g, device=device)
     vp = torch.randn((m, k), generator=g, device=device)
     yp = torch.randn((n, k), generator=g, device=device)
+    # K7's operands: k = 40 spans two 32-column chunks of the kernel
+    v40 = torch.randn((m, 40), generator=g, device=device)
+    m_vec = (torch.rand((n,), generator=g, device=device) > 0.3).float()
+    m3 = (torch.rand((n, k), generator=g, device=device) > 0.3).float()
+    m40 = (torch.rand((n, 40), generator=g, device=device) > 0.3).float()
+    m_frac = torch.rand((n, k), generator=g, device=device)
+    masked_cases = (("vec", vp[:, 0], m_vec), (f"k={k}", vp, m3), ("k=40", v40, m40),
+                    (f"k={k}/fractional", vp, m_frac), (f"k={k}/broadcast", vp, m_vec))
     worst: dict[str, float] = {}
     bad = []
 
@@ -259,6 +300,22 @@ def kernel_parity(device, *, n: int = 70_001, m: int = 1_000, d: int = 18, k: in
                       fo.knm_t_reference(x, z, y, sigma, **kw))
                 check("knm_matvec", kind, bf16, shape, fo.knm_matvec(x, z, v, sigma, **kw),
                       fo.knm_matvec_reference(x, z, v, sigma, **kw))
+            for shape, v, mask in masked_cases:
+                check("falkon_matvec_masked", kind, bf16, shape,
+                      fo.falkon_matvec(x, z, v, sigma, mask=mask, **kw),
+                      fo.falkon_matvec_masked_reference(x, z, v, mask, sigma, **kw))
+            for shape, v, mask in masked_cases[:3]:
+                tag = f"falkon_matvec_masked/{kind}{'/bf16' if bf16 else ''}/{shape}"
+                ones = fo.falkon_matvec(x, z, v, sigma, mask=torch.ones_like(mask), **kw)
+                zeros = fo.falkon_matvec(x, z, v, sigma, mask=torch.zeros_like(mask), **kw)
+                same = torch.equal(ones, fo.falkon_matvec(x, z, v, sigma, **kw))
+                nonzero = int(torch.count_nonzero(zeros))
+                log(f"parity {tag}: all-ones mask bit-identical to K2 {same}, all-zeros mask "
+                    f"nonzero outputs {nonzero}")
+                if not same:
+                    bad.append(f"{tag}: an all-ones mask is not bit-identical to K2")
+                if nonzero:
+                    bad.append(f"{tag}: an all-zeros mask gave {nonzero} nonzero outputs")
             sync(device)
 
     # K5 and K6 on the operands the backend forms: a masked center buffer and
@@ -646,7 +703,8 @@ def bless_end_to_end(device, t: dict, *, sigma: float = 4.0, lam_bless: float = 
 
     res["levels"] = levels
     res["tensors"] = {"k5": largest([c for c in rec.calls if c["dbuf"] <= ro.MAX_FUSED_M]),
-                      "k6_ladder": largest(above)}
+                      "k6_ladder": largest(above), "center_set": est.center_set_,
+                      "z": est.centers_}
     return res
 
 
@@ -662,7 +720,8 @@ def bound(name: str, n: int, m: int, d: int, k: int) -> tuple[float, str]:
     the Gram values computed once, 2d for x.z plus 3 for the distance
     (add, fma, clamp) plus 2 for the gaussian epilogue (mul, exp), and 2 per
     multiply-add of each contraction against k columns (falkon_matvec has
-    two). K5 (``rls_score``, n candidates against m centers) reads x, z, W,
+    two). K7 (``falkon_matvec_masked``) is K2 plus the (n, k) mask read and
+    its n k multiplies. K5 (``rls_score``, n candidates against m centers) reads x, z, W,
     the mask and K_ii and writes the scores; it computes the Gram values, 2
     per multiply-add of G W, and 2 per element of the row sum with G. K6
     (``quadform``, G (n, m)) reads G and W and writes n values; 2 n m^2 + 2 n m
@@ -673,6 +732,9 @@ def bound(name: str, n: int, m: int, d: int, k: int) -> tuple[float, str]:
         nbytes, ops = 4 * (n * d + m * d + n * m), gram_ops
     elif name == "falkon_matvec":
         nbytes, ops = 4 * (n * d + m * d + 2 * m * k), gram_ops + 4 * n * m * k
+    elif name == "falkon_matvec_masked":
+        nbytes = 4 * (n * d + m * d + 2 * m * k + n * k)
+        ops = gram_ops + 4 * n * m * k + n * k
     elif name == "knm_t":
         nbytes, ops = 4 * (n * d + m * d + n * k + m * k), gram_ops + 2 * n * m * k
     elif name == "knm_matvec":
@@ -695,7 +757,7 @@ def _library_call(name: str, x, z, v, s: float, block: int = 16_384, w=None, mas
     row-blocked where the whole K_nM would not fit. Never used by the port.
     For K5 it is the Gram + ``torch.matmul`` chain (1 - rowsum((G W) * G)) /
     lam n with G masked (K_ii = 1 for the gaussian); for K6, with ``x`` the
-    given G, rowsum((G W) * G)."""
+    given G, rowsum((G W) * G); for K7, per row block, G^T ((G V) * mask)."""
     def g(xb):
         return torch.exp(-torch.cdist(xb, z).square() * s)
     if name == "gram":
@@ -710,7 +772,12 @@ def _library_call(name: str, x, z, v, s: float, block: int = 16_384, w=None, mas
     out = torch.zeros((z.shape[0],) + tuple(v.shape[1:]), device=x.device)
     for i in range(0, x.shape[0], block):
         gb = g(x[i:i + block])
-        out += gb.T @ (v[i:i + block] if name == "knm_t" else gb @ v)
+        if name == "knm_t":
+            out += gb.T @ v[i:i + block]
+        elif name == "falkon_matvec_masked":
+            out += gb.T @ ((gb @ v) * mask[i:i + block])
+        else:
+            out += gb.T @ (gb @ v)
     return out
 
 
@@ -727,14 +794,25 @@ def _cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def main_path_calls(t: dict, sigma: float, bless_t: dict):
+def sweep_mask(n: int, folds: int, seed: int, device) -> torch.Tensor:
+    """The (n, folds) training-row mask ``KFoldSweep(folds=folds, seed=seed)``
+    solves with: its fold ids, from the fold generator of the seed."""
+    from repro_torch.api.sweep import fold_ids, split_generators
+
+    fid = fold_ids(split_generators(seed)[1], n, folds).to(device)
+    return (fid[:, None] != torch.arange(folds, device=device)[None, :]).float()
+
+
+def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, seed: int = 0):
     """(name, n, m, d, k, kernel call, plain call, library call) for each kernel
     at the shapes the main paths gave it: K1 builds K_MM, K2 and K3 run on
     the training rows with a vector, K4 predicts the test rows, K5 scores the
     largest ladder level with at most 1 024 centers, K6 contracts the test
-    rows' Gram block against W at M = 10^4 (the predictive variance), and
-    "quadform@ladder" is K6 at the largest ladder level above 1 024 centers
-    (timed and logged, not part of the kernels record)."""
+    rows' Gram block against W at M = 10^4 (the predictive variance), K7 runs
+    on the training rows, the BLESS centers and the sweep's (n, folds) mask
+    with an (M, folds) panel, and "quadform@ladder" is K6 at the largest
+    ladder level above 1 024 centers (timed and logged, not part of the
+    kernels record)."""
     from repro_torch.core import CudaBackend, make_kernel
     from repro_torch.kernels import falkon_matvec_ops as fo
     from repro_torch.kernels import gram_ops as go
@@ -754,6 +832,10 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict):
     g_var = go.gram(xte, z, sigma)
     xs, zs, ms, rs, lamn = bless_t["k5"]
     mk5, wk5 = inverse(kern, zs, ms, rs)
+    zb = bless_t["z"]
+    mask = sweep_mask(n, folds, seed, x.device)
+    vb = torch.randn((zb.shape[0], folds), generator=torch.Generator(device=x.device)
+                     .manual_seed(seed), device=x.device)
     extra = []
     if bless_t["k6_ladder"] is not None:
         xl, zl, ml, rl, _ = bless_t["k6_ladder"]
@@ -768,6 +850,10 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict):
         ("falkon_matvec", n, m, d, 1, lambda: fo.falkon_matvec(x, z, v, sigma),
          lambda: fo.falkon_matvec_reference(x, z, v, sigma),
          lambda: _library_call("falkon_matvec", x, z, v, s)),
+        ("falkon_matvec_masked", n, zb.shape[0], d, folds,
+         lambda: fo.falkon_matvec(x, zb, vb, sigma, mask=mask),
+         lambda: fo.falkon_matvec_masked_reference(x, zb, vb, mask, sigma),
+         lambda: _library_call("falkon_matvec_masked", x, zb, vb, s, mask=mask)),
         ("knm_t", n, m, d, 1, lambda: fo.knm_t(x, z, y, sigma),
          lambda: fo.knm_t_reference(x, z, y, sigma),
          lambda: _library_call("knm_t", x, z, y, s)),
@@ -822,6 +908,194 @@ def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 7. exact k-fold CV
+# ---------------------------------------------------------------------------
+
+
+def cross_validation(device, t: dict, center_set, *, folds: int = 5,
+                     lams=(1e-5, 1e-6, 1e-7), iters: int = 20, sigma: float = 4.0,
+                     seed: int = 0, exact_rows: int = 65_536, exact_m: int = 2_048) -> dict:
+    """KFoldSweep through the front door on phase 4's data and the given
+    (phase 5's) center set, with the launch counts reset just before the
+    sweep and read just after; then the repeat gate, one naive refit's time,
+    the exactness gate on the first ``exact_rows`` rows and the mask tax."""
+    from repro_torch import kernels
+    from repro_torch.api import KFoldSweep, UniformSampler
+    from repro_torch.core import CudaBackend, falkon_fit, make_kernel
+    from repro_torch.kernels import falkon_matvec_ops as fo
+
+    xtr, ytr = t["x"], t["y"]
+    n = xtr.shape[0]
+    on_card = torch.device(device).type == "cuda"
+    kern = make_kernel("gaussian", sigma=sigma)
+    sweep = KFoldSweep(kernel=kern, lams=lams, folds=folds, iters=iters, seed=seed,
+                       device=str(device))
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sweep.run(xtr, ytr, center_set=center_set)
+    sync(device)
+    sweep_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    again = sweep.run(xtr, ytr, center_set=center_set)
+    repeat_equal = (torch.equal(res.fold_id, again.fold_id)
+                    and torch.equal(res.scores, again.scores))
+    for li, lam in enumerate(res.lams):
+        log(f"cv lam={lam:g}: fold scores {json.dumps(res.scores[li].tolist())}, "
+            f"mean {float(res.mean_scores[li]):.6f}")
+
+    # one naive refit at full n: fold 0's training rows, the first lam
+    m = int(center_set.count)
+    dev = xtr.device
+    z, a_diag = xtr[center_set.idx[:m].to(dev)], center_set.weight[:m].to(dev)
+    train = res.fold_id != 0
+    xf, yf = xtr[train], ytr[train]
+    sync(device)
+    t0 = time.perf_counter()
+    falkon_fit(kern, xf, yf, z, lams[0], a_diag=a_diag, iters=iters, backend=CudaBackend())
+    sync(device)
+    naive_s = time.perf_counter() - t0
+    del xf, yf
+
+    # 60 iterations: both solves reach a squared-residual reduction near fp32
+    # noise (on the CPU at this size 20 and 40 iterations agree to 1.1e-6 alike)
+    exact = exact_cv(device, xtr[:exact_rows], ytr[:exact_rows], kern,
+                     UniformSampler(m=exact_m).sample(seed, xtr[:exact_rows], kern),
+                     lam=1e-3, folds=4, iters=60, seed=seed)
+
+    # the mask tax: K7 against K2 at the sweep's shape, timed in turns
+    tax = None
+    if on_card:
+        mask = sweep_mask(n, folds, seed, dev)
+        v = torch.randn((m, folds), generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+        k2, k7 = [], []
+        for fn, into in ((lambda: fo.falkon_matvec(xtr, z, v, sigma), k2),
+                         (lambda: fo.falkon_matvec(xtr, z, v, sigma, mask=mask), k7),
+                         (lambda: fo.falkon_matvec(xtr, z, v, sigma, mask=mask), k7),
+                         (lambda: fo.falkon_matvec(xtr, z, v, sigma), k2)):
+            into.append(_cuda_ms(fn, 3))
+        tax = {"k2_ms": k2, "k7_ms": k7, "ratio": sum(k7) / sum(k2), "shape": [n, m, folds]}
+        log(f"mask tax (K7 / K2, turns K2 K7 K7 K2): {json.dumps(tax)}")
+
+    out = {"n": n, "m": m, "folds": folds, "lams": list(res.lams), "iters": iters,
+           "scores": res.scores.tolist(), "best_lam": res.best_lam, "sweep_s": sweep_s,
+           "naive_refit_s": naive_s, "naive_grid_estimate_s": folds * len(lams) * naive_s,
+           "launches": launches, "repeat_bit_identical": repeat_equal, "exact": exact,
+           "mask_tax": tax}
+    log(f"cv: {json.dumps({k: v for k, v in out.items() if k != 'scores'})}")
+    bad = []
+    if not bool(torch.all(torch.isfinite(res.scores))) or res.scores.shape != (len(lams), folds):
+        bad.append(f"scores: shape {tuple(res.scores.shape)}, finite "
+                   f"{bool(torch.all(torch.isfinite(res.scores)))}")
+    if not repeat_equal:
+        bad.append("a second sweep with the same seed gave other fold ids or scores")
+    if not exact["max_rel_err"] <= CV_RTOL:
+        bad.append(f"fold scores differ from naive refits by {exact['max_rel_err']:.3e} relative "
+                   f"> {CV_RTOL}")
+    if on_card:
+        missing = [name for name in CV_PATH if launches[name] == 0]
+        if missing:
+            bad.append(f"kernels not launched on the CV path: {missing}")
+        if not tax["ratio"] <= MASK_TAX_BOUND:
+            bad.append(f"mask tax K7 / K2 = {tax['ratio']:.3f} > {MASK_TAX_BOUND}")
+    if bad:
+        raise PhaseError("cv failed: " + "; ".join(bad))
+    return out
+
+
+def exact_cv(device, x, y, kern, center_set, *, lam: float, folds: int, iters: int,
+             seed: int) -> dict:
+    """A ``folds``-fold sweep at one lam against a naive CudaBackend refit on
+    each fold's training rows, same centers: max relative score difference.
+    The sweep's solve is run once more as ``falkon_fit(row_mask=)`` to read its
+    residual reduction (and to check that it gives the sweep's scores)."""
+    from repro_torch.api import KFoldSweep
+    from repro_torch.core import CudaBackend, falkon_fit
+
+    res = KFoldSweep(kernel=kern, lams=(lam,), folds=folds, iters=iters, seed=seed,
+                     device=str(device)).run(x, y, center_set=center_set)
+    m = int(center_set.count)
+    z = x[center_set.idx[:m].to(x.device)]
+    a_diag = center_set.weight[:m].to(x.device)
+    held = res.fold_id[:, None] == torch.arange(folds, device=x.device)[None, :]
+    train = (~held).float()
+    panel = falkon_fit(kern, x, y[:, None] * train, z, lam, a_diag=a_diag, iters=iters,
+                       backend=CudaBackend(), row_mask=train)
+    sq = (panel.predict(x) - y[:, None]) ** 2
+    replay = torch.sum(sq * held, dim=0) / torch.sum(held, dim=0)
+    naive, naive_red = [], []
+    for f in range(folds):
+        rows = ~held[:, f]
+        model = falkon_fit(kern, x[rows], y[rows], z, lam, a_diag=a_diag, iters=iters,
+                           backend=CudaBackend())
+        naive.append(float(torch.mean((model.predict(x[~rows]) - y[~rows]) ** 2)))
+        naive_red.append(float(model.diagnostics.reduction.max()))
+    scores = res.scores[0].tolist()
+    rel = [abs(a - b) / abs(b) for a, b in zip(scores, naive)]
+    out = {"rows": x.shape[0], "m": m, "lam": lam, "folds": folds, "iters": iters,
+           "sweep_scores": scores, "naive_scores": naive, "max_rel_err": max(rel),
+           "sweep_residual_reduction": panel.diagnostics.reduction.tolist(),
+           "naive_residual_reduction": naive_red,
+           "replay_equals_sweep": bool(torch.equal(replay, res.scores[0]))}
+    log(f"cv exactness: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. the classifier
+# ---------------------------------------------------------------------------
+
+
+def classify(device, t: dict, center_set, bless_test_error: float, *, lam: float = 1e-6,
+             iters: int = 20, sigma: float = 4.0, seed: int = 0) -> dict:
+    """FalkonClassifier through the front door on phase 4's data and the given
+    center set, counts reset just before the fit and read after the test
+    predictions; its accuracy against 1 - the FALKON-BLESS regressor's test
+    error on the same centers, lam and iterations."""
+    from repro_torch import kernels
+    from repro_torch.api import FalkonClassifier, FitConfig
+
+    xtr, ytr, xte, yte = t["x"], t["y"], t["xte"], t["yte"]
+    clf = FalkonClassifier(kernel="gaussian", sigma=sigma,
+                           config=FitConfig(lam=lam, iters=iters, seed=seed, device=str(device)))
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clf.fit(xtr, ytr, center_set=center_set)
+    sync(device)
+    fit_s = time.perf_counter() - t0
+    margins = clf.decision_function(xte)
+    accuracy = clf.score(xte, yte)
+    sync(device)
+    launches = kernels.launch_counts()
+    scale = float(margins.abs().max())
+    antisym = float((margins[:, 0] + margins[:, 1]).abs().max()) / scale
+    res = {"n_train": xtr.shape[0], "classes": clf.classes_.tolist(),
+           "m": int(center_set.count), "lam": lam, "iters": iters, "fit_s": fit_s,
+           "accuracy": accuracy, "one_minus_bless_error": 1.0 - bless_test_error,
+           "margin_sum_over_max": antisym,
+           "cg_residual_reduction": clf.model_.diagnostics.reduction.tolist(),
+           "launches": launches}
+    log(f"classifier: {json.dumps(res)}")
+    bad = []
+    if tuple(margins.shape) != (xte.shape[0], 2) or not math.isfinite(scale):
+        bad.append(f"margins: shape {tuple(margins.shape)}, max|margin| {scale}")
+    if not abs(accuracy - (1.0 - bless_test_error)) <= E2E_TOL:
+        bad.append(f"accuracy {accuracy:.5f} is not within {E2E_TOL} of 1 - the FALKON-BLESS "
+                   f"test error ({1.0 - bless_test_error:.5f})")
+    if not antisym <= 1e-5:
+        bad.append(f"the two margin columns are not negatives of each other: {antisym:.3e}")
+    if torch.device(device).type == "cuda":
+        missing = [name for name in CLASSIFIER_PATH if launches[name] == 0]
+        if missing:
+            bad.append(f"kernels not launched on the classifier path: {missing}")
+    if bad:
+        raise PhaseError("classifier failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -846,14 +1120,19 @@ def main(argv=None) -> int:
         e2e = end_to_end("cuda", seed=args.seed)
         tensors = e2e.pop("tensors")
         fb = bless_end_to_end("cuda", tensors, seed=args.seed)
-        calls = main_path_calls(tensors, sigma=4.0, bless_t=fb.pop("tensors"))
+        bless_t = fb.pop("tensors")
+        calls = main_path_calls(tensors, sigma=4.0, bless_t=bless_t, seed=args.seed)
         errs = main_path_parity(calls)
         times = kernel_times(calls)
+        del calls
+        cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
+        clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
-    # launches: the two main paths' counts added (each reset just before its path)
-    launches = {name: e2e["launches"][name] + fb["launches"][name] for name in KERNELS}
+    # launches: the four main paths' counts added (each reset just before its path)
+    paths = (e2e, fb, cv, clf)
+    launches = {name: sum(p["launches"][name] for p in paths) for name in KERNELS}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name],
@@ -872,6 +1151,13 @@ def main(argv=None) -> int:
         f"{fb['falkon_matvec_ms']:.3f} ms, preconditioner {fb['preconditioner_s']:.3f} s, "
         f"predict {fb['predict_s']:.4f} s; launches uniform path "
         f"{json.dumps(e2e['launches'])}, FALKON-BLESS path {json.dumps(fb['launches'])}")
+    log(f"k-fold CV: sweep {cv['sweep_s']:.3f} s for {cv['folds']} folds x {len(cv['lams'])} "
+        f"lams at M = {cv['m']} (K7 {cv['launches']['falkon_matvec_masked']} launches), best "
+        f"lam {cv['best_lam']:g}; one naive refit {cv['naive_refit_s']:.3f} s, naive grid "
+        f"estimate {cv['naive_grid_estimate_s']:.3f} s; mask tax {cv['mask_tax']['ratio']:.4f}; "
+        f"classifier fit {clf['fit_s']:.3f} s, accuracy {clf['accuracy']:.5f} against "
+        f"{clf['one_minus_bless_error']:.5f}; launches CV path {json.dumps(cv['launches'])}, "
+        f"classifier path {json.dumps(clf['launches'])}")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: {json.dumps(parity_worst)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())

@@ -1,7 +1,9 @@
 """sklearn-style estimators over the paper's solvers — the second slot.
 
-Part of the counterpart of ``repro.api.estimators``; the sampler slot
-defaults to ``BlessSampler()``, so ``FalkonRegressor()`` is FALKON-BLESS:
+The counterpart of ``repro.api.estimators``: ``FalkonRegressor``,
+``FalkonClassifier`` (one-vs-rest as one multi-RHS solve),
+``NystromRegressor`` and ``ExactKrr``. The sampler slot defaults to
+``BlessSampler()``, so ``FalkonRegressor()`` is FALKON-BLESS:
 
     est = FalkonRegressor(kernel="gaussian", sigma=4.0,
                           sampler=BlessSampler(lam=1e-4, m_cap=10_000),
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..core.backend import Backend, backend_for_device, require_cuda_device
@@ -144,7 +147,7 @@ class FalkonRegressor(_KrrEstimator):
         CG. ``center_set`` bypasses the sampler with a precomputed (J, A);
         ``callback(i, model)`` is called after every CG iteration
         (single-output only); ``row_mask`` (shaped like y) gives each column
-        its own training rows (``TorchBackend`` only for now)."""
+        its own training rows (on the card through K7)."""
         x = self._as_data(x)
         y = self._as_data(y)
         cfg = self.config
@@ -164,6 +167,79 @@ class FalkonRegressor(_KrrEstimator):
                                  callback=callback, check_finite=cfg.check_finite,
                                  row_mask=None if row_mask is None else self._as_data(row_mask))
         return self
+
+
+def _host_labels(y) -> np.ndarray:
+    """Labels as a host numpy array (a tensor on any device, or array-like)."""
+    return y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else np.asarray(y)
+
+
+class FalkonClassifier(FalkonRegressor):
+    """One-vs-rest classification as ONE multi-RHS FALKON solve.
+
+    The k classes become k right-hand-side columns of a single block-CG on
+    shared centers (squared loss on +-1 one-hot targets, the least-squares
+    SVM reading): the preconditioner and every K_nM sweep are paid once, so
+    k classes cost the k-output regression, not k fits.
+
+    ``predict`` returns labels from ``self.classes_`` (argmax of the margin
+    panel); ``decision_function`` gives the raw (n, k) margins (K4 on the
+    card); ``predict_proba`` is a softmax over the margins, a monotone
+    calibration, not a fitted probability model; ``score`` is accuracy.
+    Binary problems keep both columns (k = 2), so every class has a margin.
+    """
+
+    #: sorted unique training labels; set by ``fit``.
+    classes_: np.ndarray | None = None
+
+    def fit(self, x, y, *, key: int | torch.Generator | None = None,
+            center_set: CenterSet | None = None,
+            callback: Callable[[int, FalkonModel], None] | None = None,
+            row_mask=None) -> "FalkonClassifier":
+        """Encode the labels as a +-1 one-hot panel and fit the multi-RHS solve.
+
+        ``y`` is (n,) labels of any dtype numpy can sort (ints, strings, ...);
+        the sorted unique labels become ``self.classes_``. ``callback`` is
+        refused (the panel fit has no single-output host loop).
+        """
+        if callback is not None:
+            raise ValueError("FalkonClassifier fits a multi-RHS panel; "
+                             "per-iteration callback is single-output only")
+        labels = _host_labels(y)
+        if labels.ndim != 1:
+            raise ValueError(f"classifier targets must be (n,) labels, "
+                             f"got shape {labels.shape}")
+        classes, inv = np.unique(labels, return_inverse=True)
+        if classes.shape[0] < 2:
+            raise ValueError("need at least 2 classes to classify")
+        self.classes_ = classes
+        inv = torch.as_tensor(inv.reshape(-1), device=self._device())
+        cols = torch.arange(classes.shape[0], device=inv.device)
+        panel = torch.where(inv[:, None] == cols[None, :], 1.0, -1.0).to(torch.float32)
+        super().fit(x, panel, key=key, center_set=center_set, row_mask=row_mask)
+        return self
+
+    def decision_function(self, x) -> Tensor:
+        """Raw one-vs-rest margins (n, k) through the panel predict."""
+        return super().predict(x)
+
+    def predict(self, x, *, return_std: bool = False):
+        """Predicted labels (n,) from ``classes_[argmax(margins)]``; with
+        ``return_std=True`` also the (n,) posterior std of the margins."""
+        margins = self.decision_function(x)
+        labels = self.classes_[torch.argmax(margins, dim=1).cpu().numpy()]
+        if not return_std:
+            return labels
+        return labels, torch.sqrt(self.predictive_variance(x))
+
+    def predict_proba(self, x) -> Tensor:
+        """Softmax over the margins, (n, k) rows summing to 1: a monotone
+        score calibration (ranking-faithful), not fitted probabilities."""
+        return torch.softmax(self.decision_function(x), dim=1)
+
+    def score(self, x, y) -> float:
+        """Classification accuracy in [0, 1]."""
+        return float(np.mean(self.predict(x) == _host_labels(y)))
 
 
 class NystromRegressor(_KrrEstimator):
@@ -201,4 +277,5 @@ class ExactKrr(_KrrEstimator):
         return self
 
 
-__all__ = ["FitConfig", "FalkonRegressor", "NystromRegressor", "ExactKrr"]
+__all__ = ["FitConfig", "FalkonRegressor", "FalkonClassifier", "NystromRegressor",
+           "ExactKrr"]

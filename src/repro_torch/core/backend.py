@@ -16,11 +16,11 @@ Two backends serve them:
     whatever device its tensors are on. It is the port's own oracle and
     what ``FitConfig(device="cpu")`` runs.
   * ``CudaBackend``  — the hand-written CUDA kernels, counterpart of
-    ``PallasBackend``: ``gram_block`` is K1, ``knm_quadratic`` K2, ``knm_t``
-    K3, ``knm_matvec`` K4, ``rls_scores`` the fused Eq. 3 score K5 (up to
-    ``MAX_FUSED_M`` centers) and ``masked_quadform`` K1 + the quadratic form
-    K6. The ``mask=`` panels need K7, which the port does not have yet, and
-    raise ``NotImplementedError`` naming it.
+    ``PallasBackend``: ``gram_block`` is K1, ``knm_quadratic`` K2 (with a
+    ``mask=`` panel the row-masked K7), ``knm_t`` K3 (a mask folds into the
+    targets first), ``knm_matvec`` K4, ``rls_scores`` the fused Eq. 3 score
+    K5 (up to ``MAX_FUSED_M`` centers) and ``masked_quadform`` K1 + the
+    quadratic form K6.
 
 Backends are frozen dataclasses: hashable and comparable by configuration.
 Selection is by instance, by registry name ("torch" | "cuda"), or None for
@@ -170,15 +170,9 @@ class TorchBackend(Backend):
 # ---------------------------------------------------------------------------
 
 
-def _not_yet(what: str, kernel_id: str, reference: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"CudaBackend.{what} needs {kernel_id} ({reference}), which the port has not "
-        "brought to CUDA yet; use TorchBackend for it")
-
-
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(Backend):
-    """The hand-written CUDA kernels (K1-K6); counterpart of ``PallasBackend``.
+    """The hand-written CUDA kernels (K1-K7); counterpart of ``PallasBackend``.
 
     ``bf16=True`` rounds the operands of every Gram tile's x . z term, and
     of the G W product of K5 and K6, to bf16 (fp32 accumulation; norms,
@@ -240,25 +234,22 @@ class CudaBackend(Backend):
 
     def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
                       mask: Tensor | None = None) -> KnmQuadraticOp:
-        """CG quadratic op through K2; (M,) or (M, k) iterates."""
-        if mask is not None:
-            raise _not_yet("knm_quadratic(mask=...)", "K7",
-                           "repro/kernels/falkon_matvec/falkon_matvec.py "
-                           "falkon_matvec_masked_pallas")
+        """CG quadratic op through K2; (M,) or (M, k) iterates. A ``mask``
+        ((n,) or (n, k)) runs the row-masked K7 instead."""
         kind, sigma = self._params(kernel)
 
         def op(v: Tensor) -> Tensor:
-            return falkon_ops.falkon_matvec(x, z, v, sigma, kind=kind, bf16=self.bf16)
+            return falkon_ops.falkon_matvec(x, z, v, sigma, kind=kind, bf16=self.bf16, mask=mask)
 
         return op
 
     def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
               mask: Tensor | None = None) -> Tensor:
-        """K_nM^T y through K3; (n,) -> (M,) or (n, k) -> (M, k)."""
+        """K_nM^T y through K3; (n,) -> (M,) or (n, k) -> (M, k). A ``mask``
+        shaped like ``y`` folds into the targets, K_nM^T (mask * y): it
+        enters linearly, so K3 needs no masked variant."""
         if mask is not None:
-            raise _not_yet("knm_t(mask=...)", "K7",
-                           "repro/kernels/falkon_matvec/falkon_matvec.py "
-                           "falkon_matvec_masked_pallas")
+            y = y * mask.to(y.dtype)
         kind, sigma = self._params(kernel)
         return falkon_ops.knm_t(x, z, y, sigma, kind=kind, bf16=self.bf16)
 

@@ -250,9 +250,12 @@ def falkon_fit(
     device. ``y`` may be (n,) or (n, k) (one block-CG for all columns).
     Every fit records its CG residual trajectory as ``model.diagnostics``;
     ``check_finite=True`` raises ``health.NonFiniteError`` instead of
-    returning a NaN alpha. ``row_mask`` (shaped like ``y``) fits column j
-    on its masked rows only (n_j = sum of its mask; the preconditioner keeps
-    the global n, which leaves the CG iterates unchanged).
+    returning a NaN alpha. ``row_mask`` (shaped like ``y``, on the card
+    through K7) fits column j on its masked rows only: it solves
+    (K_nM^T diag(m_j) K_nM + lam n_j K_MM) alpha_j = K_nM^T (m_j y_j) with
+    n_j = sum(m_j), exact in fp32 for binary masks up to 2^24 rows. The
+    preconditioner keeps the global n, so the solution is a refit's on those
+    rows, but the iterates before convergence are not.
     """
     n = x.shape[0]
     m = centers.shape[0]
@@ -261,7 +264,7 @@ def falkon_fit(
         raise ValueError("per-iteration callback is single-output only; "
                          "fit columns separately to trace them")
     if row_mask is not None:
-        row_mask = row_mask.to(x.dtype)
+        row_mask = row_mask.to(device=x.device, dtype=x.dtype)
         if row_mask.shape != y.shape:
             raise ValueError(f"row_mask shape {tuple(row_mask.shape)} must match "
                              f"y shape {tuple(y.shape)}")

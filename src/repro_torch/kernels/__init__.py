@@ -14,6 +14,7 @@ from .rls_score import ops as rls_score_ops
 WRAPPERS = {
     "gram": gram_ops.gram,
     "falkon_matvec": falkon_matvec_ops.falkon_matvec,
+    "falkon_matvec_masked": falkon_matvec_ops.falkon_matvec_masked,
     "knm_t": falkon_matvec_ops.knm_t,
     "knm_matvec": falkon_matvec_ops.knm_matvec,
     "rls_score": rls_score_ops.rls_score,

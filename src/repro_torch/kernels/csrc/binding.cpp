@@ -107,6 +107,35 @@ void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v
   knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
 }
 
+// K7: out (m, k) column j = k(x, z)^T diag(mask[:, j]) k(x, z) v[:, j]; mask (n, k);
+// t (n, k) holds the masked first stage, partial as in knm_t.
+void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
+                          const at::Tensor& mask, at::Tensor& t, at::Tensor& partial,
+                          at::Tensor& out, int64_t chunk_rows, int64_t fam, double s,
+                          bool bf16) {
+  check(x, "x");
+  check(z, "z");
+  check(v, "v");
+  check(mask, "mask");
+  check(t, "t");
+  check(partial, "partial");
+  check(out, "out");
+  TORCH_CHECK(mask.dim() == 2 && mask.size(0) == x.size(0) && mask.size(1) == v.size(1),
+              "mask must be (n, k) = (", x.size(0), ", ", v.size(1), "), got ", mask.sizes());
+  if (z.size(0) == 0 || v.size(1) == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (x.size(0) > 0) {
+    repro::launch_knm_matvec_masked(x.data_ptr<float>(), z.data_ptr<float>(),
+                                    v.data_ptr<float>(), mask.data_ptr<float>(),
+                                    t.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1),
+                                    dim(v, 1), static_cast<int>(fam), static_cast<float>(s),
+                                    bf16, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+  knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
+}
+
 // K5: out (n,) = (kdiag - g^T w g) / lamn per row, g = k(x, z) * zmask.
 void rls_score(const at::Tensor& x, const at::Tensor& z, const at::Tensor& w,
                const at::Tensor& zmask, const at::Tensor& kdiag, at::Tensor& out, int64_t fam,
@@ -152,6 +181,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
   m.def("knm_t", &knm_t, "K3: K_nM^T Y, fixed-order two-stage sum");
   m.def("falkon_matvec", &falkon_matvec, "K2: K_nM^T K_nM V");
+  m.def("falkon_matvec_masked", &falkon_matvec_masked,
+        "K7: K_nM^T diag(mask_j) K_nM v_j per column");
   m.def("rls_score", &rls_score, "K5: fused Eq. 3 score");
   m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
 }

@@ -19,7 +19,12 @@ void launch_gram(const float* x, const float* z, float* out, int n, int m, int d
 void launch_knm_matvec(const float* x, const float* z, const float* a, float* out, int n,
                        int m, int d, int k, int fam, float s, bool bf16, cudaStream_t st);
 
-// K3, and stage 2 of K2, first half: partial (n_chunks, m, k) holds, per
+// K7, stage 1: out (n, k) = (k(x, z) a (m, k)) * mask (n, k), elementwise.
+void launch_knm_matvec_masked(const float* x, const float* z, const float* a, const float* mask,
+                              float* out, int n, int m, int d, int k, int fam, float s,
+                              bool bf16, cudaStream_t st);
+
+// K3, and stage 2 of K2 and K7, first half: partial (n_chunks, m, k) holds, per
 // chunk of chunk_rows rows, that chunk's k(x, z)^T y summed in row order.
 void launch_knm_t_partial(const float* x, const float* z, const float* y, float* partial,
                           int n, int m, int d, int k, int n_chunks, int chunk_rows, int fam,

@@ -1,1 +1,1 @@
-"""K2-K4: the FALKON K_nM contractions."""
+"""K2-K4 and K7: the FALKON K_nM contractions."""

@@ -6,6 +6,8 @@
 //   K4 knm_matvec    O = K_nM A        replaces falkon_matvec.py:221 `knm_matvec_pallas`
 //   K3 knm_t         R = K_nM^T Y      replaces falkon_matvec.py:184 `knm_t_pallas`
 //   K2 falkon_matvec R = K_nM^T K_nM V replaces falkon_matvec.py:93  `falkon_matvec_pallas`
+//   K7 falkon_matvec_masked            replaces falkon_matvec.py:139 `falkon_matvec_masked_pallas`
+//                    R[:, j] = K_nM^T diag(mask[:, j]) K_nM V[:, j]
 //
 // The host launchers (declared in ../csrc/launchers.h) each enqueue one
 // kernel; ../csrc/binding.cpp sequences them per entry point and checks
@@ -33,6 +35,14 @@
 //    version therefore builds every Gram tile twice per call: stage 1 is the
 //    K4 kernel writing T (n, k) to device memory, stage 2 the K3 kernels on
 //    T. Twice the Gram FLOPs and exps of the fused reference.
+//  * K7 (falkon_matvec_masked): K2 with the row mask fused into stage 1's
+//    epilogue, T[r, c] = (K_nM V)[r, c] * mask[r, c], written once; stage 2
+//    is K3's kernels on T. Stage 1 is one kernel templated on MASKED, so K2
+//    and K4 compile to the same code as without it, and an all-ones mask
+//    gives K2's result bit for bit (acc * 1.0f is exact). The mask adds n k
+//    fp32 reads and n k multiplies to K2's work (20 MB and ~6 us at n = 10^6,
+//    k = 5): K7 is bound by operations, as K2 is, and inherits K2's double
+//    Gram build.
 //  * Output columns k are processed KC at a time (grid axis); k <= KC, the
 //    main path's case, builds each Gram tile once per stage.
 //  * Rows >= n and centers >= M are masked inside the kernels (gram_tile
@@ -56,11 +66,14 @@ __device__ __forceinline__ void store_tile(float gs[TILE][TILE + 1], float g[PER
     for (int j = 0; j < PER; ++j) gs[ty + 16 * i][tx + 16 * j] = g[i][j];
 }
 
-// O[row tile, kc0:kc0+kw] = sum over center chunks of G A; one block per row tile.
+// O[row tile, kc0:kc0+kw] = sum over center chunks of G A; one block per row
+// tile. MASKED multiplies each output by mask (n, k) as it is written (K7).
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS)
 knm_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                  const float* __restrict__ a, float* __restrict__ out,
-                  int n, int m, int d, int k, int fam, float s, int bf16) {
+                  const float* __restrict__ a, const float* __restrict__ mask,
+                  float* __restrict__ out, int n, int m, int d, int k, int fam, float s,
+                  int bf16) {
   __shared__ TileSmem sm;
   __shared__ float gs[TILE][TILE + 1];
   __shared__ float as[TILE][KC];
@@ -99,7 +112,10 @@ knm_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
     const int p = tid + THREADS * q;
     if (p < TILE * kw) {
       const int r = p / kw, c = p % kw;
-      if (row0 + r < n) out[(long long)(row0 + r) * k + kc0 + c] = acc[q];
+      if (row0 + r < n) {
+        const long long o = (long long)(row0 + r) * k + kc0 + c;
+        out[o] = MASKED ? acc[q] * mask[o] : acc[q];
+      }
     }
   }
 }
@@ -172,7 +188,16 @@ void repro::launch_knm_matvec(const float* x, const float* z, const float* a, fl
                               int n, int m, int d, int k, int fam, float s, bool bf16,
                               cudaStream_t st) {
   const dim3 grid((n + TILE - 1) / TILE, (k + KC - 1) / KC);
-  knm_matvec_kernel<<<grid, THREADS, 0, st>>>(x, z, a, out, n, m, d, k, fam, s, bf16);
+  knm_matvec_kernel<false><<<grid, THREADS, 0, st>>>(x, z, a, nullptr, out, n, m, d, k, fam, s,
+                                                     bf16);
+}
+
+void repro::launch_knm_matvec_masked(const float* x, const float* z, const float* a,
+                                     const float* mask, float* out, int n, int m, int d, int k,
+                                     int fam, float s, bool bf16, cudaStream_t st) {
+  const dim3 grid((n + TILE - 1) / TILE, (k + KC - 1) / KC);
+  knm_matvec_kernel<true><<<grid, THREADS, 0, st>>>(x, z, a, mask, out, n, m, d, k, fam, s,
+                                                    bf16);
 }
 
 void repro::launch_knm_t_partial(const float* x, const float* z, const float* y,

@@ -1,9 +1,11 @@
-"""Public wrappers of K2-K4, the fused FALKON K_nM contractions.
+"""Public wrappers of K2-K4 and K7, the fused FALKON K_nM contractions.
 
 ``falkon_matvec`` (K_nM^T K_nM V, the CG quadratic op), ``knm_t`` (K_nM^T Y,
 the CG right-hand sides) and ``knm_matvec`` (K_nM A, predict) take a single
 vector or an (., k) panel and any n, M, d, k: nothing is padded, the kernels
-mask the ragged edges themselves. A CUDA tensor goes to the kernels of
+mask the ragged edges themselves. ``falkon_matvec(mask=...)`` goes to
+``falkon_matvec_masked`` (K7, the row-masked quadratic op of exact k-fold
+CV). A CUDA tensor goes to the kernels of
 ``falkon_matvec.cu`` (through the extension ``build.py`` loads) or the call
 raises; a CPU tensor goes to the plain version in ``ref.py``. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
@@ -16,7 +18,7 @@ from ...families import get_family
 from .. import build
 from ..common import is_cpu, require_cuda
 from ..gram.ops import cuda_family_id
-from .ref import falkon_matvec_ref, knm_matvec_ref, knm_t_ref
+from .ref import falkon_matvec_masked_ref, falkon_matvec_ref, knm_matvec_ref, knm_t_ref
 
 TILE = 64  # the kernels' Gram tile edge (gram_tile.cuh)
 #: blocks the row-chunked reductions aim to launch (a few waves of 132 SMs).
@@ -56,8 +58,16 @@ def _check_xz(x: torch.Tensor, z: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
 
 
 def falkon_matvec(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, sigma: float = 1.0, *,
-                  kind: str = "gaussian", bf16: bool = False) -> torch.Tensor:
-    """K_nM^T (K_nM v) -> (M,) or (M, k) fp32 (K2)."""
+                  kind: str = "gaussian", bf16: bool = False,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """K_nM^T (K_nM v) -> (M,) or (M, k) fp32 (K2).
+
+    ``mask`` -- optional per-column row weights, (n,) or, with a panel ``v``,
+    (n, k): column j then computes K_nM^T diag(mask[:, j]) K_nM v_j through
+    ``falkon_matvec_masked`` (K7). ``mask=None`` is K2 unchanged.
+    """
+    if mask is not None:
+        return falkon_matvec_masked(x, z, v, mask, sigma, kind=kind, bf16=bf16)
     s = _inv_scale(kind, sigma)
     if is_cpu(x, z, v):
         return falkon_matvec_ref(x, z, v, s, kind=kind, bf16=bf16)
@@ -72,6 +82,45 @@ def falkon_matvec(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, sigma: floa
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     build.extension().falkon_matvec(x, z, vp, t, partial, out, chunk_rows, fam_id, s, bf16)
     falkon_matvec.launches += 1
+    return out[:, 0] if squeeze else out
+
+
+def _as_mask(mask: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The mask as the reference normalises it: an (n,) mask with a panel
+    ``v`` is broadcast to (n, k); then fp32 and contiguous."""
+    if mask.ndim == 1 and v.ndim == 2:
+        mask = mask[:, None].expand(mask.shape[0], v.shape[1])
+    want = (x.shape[0],) + tuple(v.shape[1:])
+    if tuple(mask.shape) != want:
+        raise ValueError(f"mask must be {want} for v of shape {tuple(v.shape)} (or ({x.shape[0]},) "
+                         f"with a panel), got {tuple(mask.shape)}")
+    return mask.to(torch.float32).contiguous()
+
+
+def falkon_matvec_masked(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                         sigma: float = 1.0, *, kind: str = "gaussian",
+                         bf16: bool = False) -> torch.Tensor:
+    """Column j of K_nM^T diag(mask[:, j]) K_nM v_j -> (M,) or (M, k) fp32 (K7).
+
+    ``mask`` is (n,) with a vector ``v``, or (n, k) or (n,) with a panel.
+    """
+    s = _inv_scale(kind, sigma)
+    mask = _as_mask(mask, x, v)
+    if is_cpu(x, z, v, mask):
+        return falkon_matvec_masked_ref(x, z, v, mask, s, kind=kind, bf16=bf16)
+    fam_id = cuda_family_id(kind)
+    x, z = _check_xz(x, z)
+    vp, squeeze = _as_panel(v, z.shape[0], "v")
+    mp = mask[:, None] if squeeze else mask
+    n = x.shape[0]
+    m, k = vp.shape
+    n_chunks, chunk_rows = row_chunks(n, m)
+    t = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    partial = torch.empty((n_chunks, m, k), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    build.extension().falkon_matvec_masked(x, z, vp, mp, t, partial, out, chunk_rows, fam_id, s,
+                                           bf16)
+    falkon_matvec_masked.launches += 1
     return out[:, 0] if squeeze else out
 
 
@@ -110,6 +159,7 @@ def knm_matvec(x: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, sigma: flo
 
 
 falkon_matvec.launches = 0
+falkon_matvec_masked.launches = 0
 knm_t.launches = 0
 knm_matvec.launches = 0
 
@@ -118,6 +168,13 @@ def falkon_matvec_reference(x, z, v, sigma: float = 1.0, *, kind: str = "gaussia
                             bf16: bool = False) -> torch.Tensor:
     """The plain K2 at the wrapper's signature (any device)."""
     return falkon_matvec_ref(x, z, v, _inv_scale(kind, sigma), kind=kind, bf16=bf16)
+
+
+def falkon_matvec_masked_reference(x, z, v, mask, sigma: float = 1.0, *,
+                                   kind: str = "gaussian", bf16: bool = False) -> torch.Tensor:
+    """The plain K7 at the wrapper's signature (any device)."""
+    return falkon_matvec_masked_ref(x, z, v, _as_mask(mask, x, v), _inv_scale(kind, sigma),
+                                    kind=kind, bf16=bf16)
 
 
 def knm_t_reference(x, z, y, sigma: float = 1.0, *, kind: str = "gaussian",

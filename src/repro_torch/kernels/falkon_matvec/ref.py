@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of K2-K4, the FALKON K_nM contractions.
+"""Plain PyTorch versions of K2-K4 and K7, the FALKON K_nM contractions.
 
 Same math as the CUDA kernels: the Gram block is ``gram_ref`` (bf16 only on
 the x . z operands), contracted in fp32. X is taken in row blocks of
 ``block`` rows so K_nM is never stored whole, here either; ``knm_t`` and
 ``falkon_matvec`` add the blocks' contributions in row order. ``v``, ``y``
-and ``alpha`` may be vectors or (., k) panels.
+and ``alpha`` may be vectors or (., k) panels; the mask of
+``falkon_matvec_masked_ref`` is shaped like a length-n slice of ``v``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,20 @@ def falkon_matvec_ref(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, inv_sca
     for i in range(0, x.shape[0], block):
         g = gram_ref(x[i:i + block], z, inv_scale, kind=kind, bf16=bf16)
         out += g.T @ (g @ v)
+    return out
+
+
+def falkon_matvec_masked_ref(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor,
+                             mask: torch.Tensor, inv_scale: float, *, kind: str = "gaussian",
+                             bf16: bool = False, block: int = ROW_BLOCK) -> torch.Tensor:
+    """Column j of K_nM^T diag(mask[:, j]) K_nM v_j -> (M,) or (M, k); ``mask``
+    is (n,) with a vector ``v`` or (n, k) with a panel."""
+    v = v.float()
+    mask = mask.float()
+    out = v.new_zeros((z.shape[0],) + tuple(v.shape[1:]))
+    for i in range(0, x.shape[0], block):
+        g = gram_ref(x[i:i + block], z, inv_scale, kind=kind, bf16=bf16)
+        out += g.T @ ((g @ v) * mask[i:i + block])
     return out
 
 

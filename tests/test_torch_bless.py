@@ -140,10 +140,20 @@ def test_cuda_backend_scores_on_cpu_tensors_match_pallas_backend(kind, m, monkey
 
 
 def test_cuda_backend_keeps_mask_panels_for_k7():
-    be, k = CudaBackend(), core.make_kernel()
-    x = torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="K7"):
-        be.knm_t(k, x, x, torch.ones(4), mask=torch.ones(4))
+    # K7 has landed: CudaBackend's mask panels (K7's plain version for the
+    # quadratic op on CPU tensors; the targets times the mask, then K3) match
+    # the reference's PallasBackend in interpret mode.
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((90, 4)).astype(np.float32)
+    v = rng.standard_normal((12, 2)).astype(np.float32)
+    y = rng.standard_normal((90, 2)).astype(np.float32)
+    mask = (rng.random((90, 2)) > 0.3).astype(np.float32)
+    jq, jt = jcore.PallasBackend(interpret=True).knm_operators(
+        JKERN, jnp.asarray(x), jnp.asarray(x[:12]), jnp.asarray(y), mask=jnp.asarray(mask))
+    tq, tt = CudaBackend().knm_operators(TKERN, _t(x), _t(x[:12]), _t(y), mask=_t(mask))
+    for ref, out in ((jq(jnp.asarray(v)), tq(_t(v))), (jt, tt)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4 * np.abs(ref).max())
 
 
 # -- per-level scores on center sets carried across ------------------------------------

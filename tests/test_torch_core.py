@@ -300,8 +300,9 @@ def test_torch_backend_mask_panels_match_reference():
 
 
 def test_cuda_backend_names_the_kernels_it_does_not_have_yet():
-    # K5 and K6 have landed: the Eq. 3 methods compute (on CPU tensors through
-    # the kernels' plain versions); the mask panels still need K7.
+    # K5, K6 and K7 have landed: the Eq. 3 methods and the mask panels
+    # compute (on CPU tensors through the kernels' plain versions) and match
+    # TorchBackend; nothing raises for a kernel still missing.
     be, k = CudaBackend(), core.make_kernel()
     x = torch.from_numpy(_data(4, 2))
     mask, reg = torch.ones(4, dtype=torch.bool), torch.full((4,), 2.0)
@@ -309,10 +310,34 @@ def test_cuda_backend_names_the_kernels_it_does_not_have_yet():
                                TorchBackend().masked_quadform(k, x, x, mask, reg))
     torch.testing.assert_close(be.rls_scores(k, x, x, mask, reg, 2.0),
                                TorchBackend().rls_scores(k, x, x, mask, reg, 2.0))
-    with pytest.raises(NotImplementedError, match="K7"):
-        be.knm_quadratic(k, x, x, mask=torch.ones(4))
-    with pytest.raises(NotImplementedError, match="K7"):
-        be.knm_t(k, x, x, torch.ones(4), mask=torch.ones(4))
+    rows = torch.tensor([1.0, 0.0, 1.0, 0.5])
+    torch.testing.assert_close(be.knm_quadratic(k, x, x, mask=rows)(torch.ones(4)),
+                               TorchBackend().knm_quadratic(k, x, x, mask=rows)(torch.ones(4)))
+    torch.testing.assert_close(be.knm_t(k, x, x, torch.ones(4), mask=rows),
+                               TorchBackend().knm_t(k, x, x, torch.ones(4), mask=rows))
+    from repro_torch.core import backend as backend_module
+    assert not hasattr(backend_module, "_not_yet")
+
+
+@pytest.mark.parametrize("case", ["vector", "panel", "broadcast"])
+def test_cuda_backend_mask_panels_match_torch_backend(case):
+    # CudaBackend's mask paths (K7 for the quadratic op, the targets times the
+    # mask then K3) on CPU tensors against TorchBackend's streamer.
+    x, z = _data(150, seed=16), _data(20, seed=17)
+    rng = np.random.default_rng(18)
+    k = None if case == "vector" else 3
+    v = rng.standard_normal((20,) if k is None else (20, k)).astype(np.float32)
+    y = rng.standard_normal((150,) if k is None else (150, k)).astype(np.float32)
+    mask = (rng.random((150,) if case != "panel" else (150, 3)) > 0.3).astype(np.float32)
+    tk = core.make_kernel("matern32", sigma=1.5)
+    ymask = np.broadcast_to(mask[:, None], y.shape) if case == "broadcast" else mask
+    cq, ct = CudaBackend().knm_operators(tk, _t(x), _t(z), _t(y), mask=_t(ymask))
+    tq, tt = TorchBackend(block=64).knm_operators(tk, _t(x), _t(z), _t(y), mask=_t(ymask))
+    cq = CudaBackend().knm_quadratic(tk, _t(x), _t(z), mask=_t(mask))
+    for out, ref in ((cq(_t(v)), tq(_t(v))), (ct, tt)):
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
 
 
 # -- sampler -------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""K1-K6 on the card, held against their plain PyTorch versions on the same
+"""K1-K7 on the card, held against their plain PyTorch versions on the same
 CUDA tensors. Needs an NVIDIA Hopper card and nvcc; elsewhere every test
 skips with the reason. Run on the card with
 
@@ -83,8 +83,92 @@ def test_launch_counts_and_bit_repeatable_reductions(dev):
     fo.knm_matvec(x, z, v)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(c, d)  # fixed-order sums, no atomics
-    assert kernels.launch_counts() == {"gram": 1, "falkon_matvec": 2, "knm_t": 2, "knm_matvec": 1,
-                                       "rls_score": 0, "quadform": 0}
+    assert kernels.launch_counts() == {"gram": 1, "falkon_matvec": 2, "falkon_matvec_masked": 0,
+                                       "knm_t": 2, "knm_matvec": 1, "rls_score": 0, "quadform": 0}
+
+
+def _mask(dev, n, k, case, seed=0):
+    """The row masks K7 takes: a 0/1 vector or panel, fractional weights, or
+    an (n,) mask that the wrapper broadcasts to the panel."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if case == "fractional":
+        return torch.rand((n, k), generator=g, device=dev)
+    shape = (n,) if case in ("vec", "broadcast") else (n, k)
+    return (torch.rand(shape, generator=g, device=dev) > 0.3).float()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("case,k", [("vec", None), ("k3", 3), ("k40", 40), ("broadcast", 3),
+                                    ("fractional", 3)])
+def test_masked_kernel_matches_plain(dev, kind, bf16, case, k):
+    x, z, v, _ = _inputs(dev, 20_011, 517, 18, k or 1, seed=10)
+    if k is None:
+        v = v[:, 0]
+    mask = _mask(dev, x.shape[0], k or 1, case, seed=11)
+    kw = dict(kind=kind, bf16=bf16)
+    ref = fo.falkon_matvec_masked_reference(x, z, v, mask, 3.0, **kw)
+    _close(fo.falkon_matvec(x, z, v, 3.0, mask=mask, **kw), ref,
+           (3e-2 if bf16 else 1e-4) * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("k", [None, 3, 40])
+def test_masked_kernel_all_ones_is_bit_identical_to_k2_and_zeros_give_zero(dev, k):
+    x, z, v, _ = _inputs(dev, 9001, 300, 18, k or 1, seed=12)
+    if k is None:
+        v = v[:, 0]
+    rows = (x.shape[0],) if k is None else (x.shape[0], k)
+    kernels.reset_launch_counts()
+    ones = fo.falkon_matvec(x, z, v, mask=torch.ones(rows, device=dev))
+    zeros = fo.falkon_matvec(x, z, v, mask=torch.zeros(rows, device=dev))
+    plain = fo.falkon_matvec(x, z, v)
+    again = fo.falkon_matvec(x, z, v, mask=torch.ones(rows, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(ones, plain) and torch.equal(ones, again)
+    assert torch.count_nonzero(zeros) == 0
+    counts = kernels.launch_counts()
+    assert counts["falkon_matvec_masked"] == 3 and counts["falkon_matvec"] == 1
+    with pytest.raises(ValueError, match="mask must be"):
+        fo.falkon_matvec(x, z, v, mask=torch.ones((x.shape[0] + 1,), device=dev))
+
+
+def test_masked_fit_is_bit_repeatable_and_matches_torch_backend(dev):
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((30_000, 18), generator=g, device=dev)
+    y = torch.sign(torch.sin(x[:, 0]) + 0.3 * x[:, 1])
+    fold = torch.arange(x.shape[0], device=dev) % 4
+    mask = (fold[:, None] != torch.arange(4, device=dev)[None, :]).float()
+    kern = core.make_kernel("gaussian", sigma=4.0)
+    kernels.reset_launch_counts()
+    fits = [core.falkon_fit(kern, x, y[:, None] * mask, x[:1000], 1e-3, iters=20,
+                            backend=core.CudaBackend(), row_mask=mask) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["falkon_matvec_masked"] == 60
+    assert all(torch.equal(fits[0].alpha, f.alpha) for f in fits[1:])
+    ref = core.falkon_fit(kern, x, y[:, None] * mask, x[:1000], 1e-3, iters=20,
+                          backend=core.TorchBackend(), row_mask=mask)
+    pred, want = fits[0].predict(x[:5000]), ref.predict(x[:5000], backend=core.TorchBackend())
+    _close(pred, want, 1e-3 * float(want.abs().max()))
+
+
+def test_sweep_and_classifier_run_on_the_card_by_default(dev):
+    from repro_torch.api import FalkonClassifier, FitConfig, KFoldSweep, UniformSampler
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((6000, 6), generator=g, device=dev)
+    y = torch.cos(x[:, 0])
+    kernels.reset_launch_counts()
+    sweep = KFoldSweep(sigma=2.0, sampler=UniformSampler(200), lams=(1e-3, 1e-5), folds=3,
+                       iters=15)
+    res, again = sweep.run(x, y), sweep.run(x, y)
+    assert kernels.launch_counts()["falkon_matvec_masked"] == 2 * 2 * 15
+    assert res.scores.device.type == "cuda" and res.scores.shape == (2, 3)
+    assert torch.equal(res.scores, again.scores) and torch.equal(res.fold_id, again.fold_id)
+    labels = (x[:, 0] > 0).long() + (x[:, 1] > 0.5).long()
+    clf = FalkonClassifier(sigma=2.0, sampler=UniformSampler(200),
+                           config=FitConfig(lam=1e-5, iters=15)).fit(x, labels)
+    assert list(clf.classes_) == [0, 1, 2] and clf.score(x, labels) > 0.9
+    assert clf.decision_function(x).shape == (6000, 3)
 
 
 def _score_inputs(dev, r, m, d, kind, seed):

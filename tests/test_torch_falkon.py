@@ -177,13 +177,29 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
                                      score_rows=256)
     assert fb["repeat_bit_identical"] and fb["levels_above_1024"] > 0
     assert [lvl["lam"] for lvl in fb["levels"]][-1] == 1e-2
-    calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=fb.pop("tensors"))
+    bless_t = fb.pop("tensors")
+    calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=bless_t, folds=3)
     assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + ["quadform@ladder"]
+    masked = next(c for c in calls if c[0] == "falkon_matvec_masked")
+    assert masked[1:5] == (1536, int(bless_t["center_set"].count), 18, 3)
     errs = chip_smoke.main_path_parity(calls)
     assert set(errs) == set(chip_smoke.KERNELS) | {"quadform@ladder"}
-    for name, n, m, d, k, _, _, library in calls:
+    for name, n, m, d, k, kern, _, library in calls:
         out = library()
         assert bool(torch.all(torch.isfinite(out)))
+        if name == "falkon_matvec_masked":  # the yardstick computes the same function
+            ref = kern()
+            assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    # phase 7: the sweep on the BLESS centers, its repeat, the exactness gate
+    cv = chip_smoke.cross_validation("cpu", tensors, bless_t["center_set"], folds=3,
+                                     lams=(1e-3, 1e-4), iters=10, exact_rows=1024, exact_m=64)
+    assert cv["repeat_bit_identical"] and len(cv["scores"]) == 2 and cv["best_lam"] in (1e-3, 1e-4)
+    assert cv["exact"]["max_rel_err"] <= chip_smoke.CV_RTOL and cv["exact"]["replay_equals_sweep"]
+    assert cv["mask_tax"] is None  # timed on the card only
+    assert sum(cv["launches"].values()) == 0  # the CPU runs the plain versions
+    # phase 8: the classifier on the same centers against phase 5's regressor
+    clf = chip_smoke.classify("cpu", tensors, bless_t["center_set"], fb["test_error"])
+    assert clf["classes"] == [-1.0, 1.0] and clf["margin_sum_over_max"] <= 1e-5
 
 
 def test_chip_smoke_bounds():
@@ -200,6 +216,16 @@ def test_chip_smoke_bounds():
     ms, by = chip_smoke.bound("rls_score", 30_000, 1024, 18, 1)
     ops = 30_000 * 1024 * (41 + 2 * 1024 + 2)
     assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
+    # K7 at the sweep's shape: K2's count plus the (n, k) mask's n k multiplies
+    ms, by = chip_smoke.bound("falkon_matvec_masked", 10 ** 6, 2980, 18, 5)
+    ops = 10 ** 6 * 2980 * (41 + 4 * 5) + 5 * 10 ** 6
+    assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
+    k2, _ = chip_smoke.bound("falkon_matvec", 10 ** 6, 2980, 18, 5)
+    assert 1.0 < ms / k2 < 1.001
+    # at a tiny M the mask's 4 n k bytes count in the bytes bound
+    ms, by = chip_smoke.bound("falkon_matvec_masked", 10 ** 6, 1, 1, 5)
+    assert by == "bytes" and ms == pytest.approx(4 * (10 ** 6 + 1 + 10 + 5 * 10 ** 6)
+                                                 / 3.35e12 * 1e3)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -1,4 +1,4 @@
-"""The port's kernel wrappers (K1-K4) on the CPU, held against the reference's
+"""The port's kernel wrappers (K1-K4, K7) on the CPU, held against the reference's
 Pallas kernels run in interpret mode on the same numpy inputs.
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version; these
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels.falkon_matvec import ops as jax_fo
+from repro.kernels.falkon_matvec.ref import falkon_matvec_masked_ref as jax_masked_ref
 from repro.kernels.gram import ops as jax_go
 from repro_torch import kernels
 from repro_torch.kernels import build
@@ -87,6 +88,62 @@ def test_bf16_contractions_match_reference_kernels(kind):
         np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=3e-2 * np.abs(ref).max())
 
 
+def _mask_case(case, n=193, k=3, seed=1):
+    """(mask, vector v?) for K7: a 0/1 vector with a vector v, a 0/1 panel, an
+    (n,) mask broadcast to the panel, or fractional panel weights."""
+    rng = np.random.default_rng(seed)
+    shape = (n,) if case in ("vec", "broadcast") else (n, k)
+    mask = rng.random(shape) if case == "fractional" else rng.random(shape) > 0.3
+    return mask.astype(np.float32), case == "vec"
+
+
+@pytest.mark.parametrize("case", ["vec", "panel", "broadcast", "fractional"])
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_masked_contraction_matches_reference_kernel(kind, case):
+    # K7's plain version against the Pallas K7 in interpret mode and the
+    # reference's plain masked matvec, on the same inputs.
+    x, z, v, _ = _inputs()
+    mask, vector = _mask_case(case)
+    if vector:
+        v = v[:, 0]
+    pallas = np.asarray(jax_fo.falkon_matvec(jnp.asarray(x), jnp.asarray(z), jnp.asarray(v), SIGMA,
+                                             kind=kind, interpret=True, mask=jnp.asarray(mask)))
+    full = np.broadcast_to(mask[:, None], (x.shape[0], v.shape[1])) if case == "broadcast" else mask
+    inv_scale = fo._inv_scale(kind, SIGMA)
+    plain = np.asarray(jax_masked_ref(jnp.asarray(x), jnp.asarray(z), jnp.asarray(v),
+                                      jnp.asarray(full), inv_scale, kind=kind))
+    out = fo.falkon_matvec(_t(x), _t(z), _t(v), SIGMA, kind=kind, mask=_t(mask))
+    direct = fo.falkon_matvec_masked_reference(_t(x), _t(z), _t(v), _t(mask), SIGMA, kind=kind)
+    for ref in (pallas, plain):
+        assert out.shape == ref.shape == v.shape[:0] + (z.shape[0],) + v.shape[1:]
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    assert torch.equal(out, direct)
+
+
+@pytest.mark.parametrize("vector", [True, False])
+def test_masked_wrapper_all_ones_is_bit_identical_and_zeros_give_zero(vector):
+    x, z, v, _ = map(_t, _inputs(seed=2))
+    if vector:
+        v = v[:, 0]
+    rows = (x.shape[0],) + tuple(v.shape[1:])
+    for bf16 in (False, True):
+        plain = fo.falkon_matvec(x, z, v, SIGMA, bf16=bf16)
+        assert torch.equal(fo.falkon_matvec(x, z, v, SIGMA, bf16=bf16, mask=torch.ones(rows)), plain)
+        zeros = fo.falkon_matvec(x, z, v, SIGMA, bf16=bf16, mask=torch.zeros(rows))
+        assert zeros.shape == plain.shape and torch.count_nonzero(zeros) == 0
+    with pytest.raises(ValueError, match="mask must be"):
+        fo.falkon_matvec(x, z, v, mask=torch.ones((x.shape[0] - 1,) + tuple(v.shape[1:])))
+
+
+def test_masked_bf16_matches_reference_kernel():
+    x, z, v, _ = _inputs(seed=3)
+    mask, _ = _mask_case("panel", seed=4)
+    ref = np.asarray(jax_fo.falkon_matvec(jnp.asarray(x), jnp.asarray(z), jnp.asarray(v), SIGMA,
+                                          interpret=True, bf16=True, mask=jnp.asarray(mask)))
+    out = fo.falkon_matvec(_t(x), _t(z), _t(v), SIGMA, bf16=True, mask=_t(mask)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=3e-2 * np.abs(ref).max())
+
+
 def test_bf16_rounds_only_the_cross_term():
     # Values that bf16 cannot hold: the fp32 and bf16 Gram blocks must differ,
     # and the bf16 one must equal the fp32 formula on rounded cross-term operands.
@@ -106,6 +163,11 @@ def test_row_blocked_plain_versions_match_unblocked():
         full = fn(x, z, arg, s, block=10_000)
         blocked = fn(x, z, arg, s, block=64)
         torch.testing.assert_close(blocked, full, rtol=0, atol=1e-5 * float(full.abs().max()))
+    from repro_torch.kernels.falkon_matvec.ref import falkon_matvec_masked_ref
+    mask = _t(_mask_case("fractional", n=300)[0])
+    full = falkon_matvec_masked_ref(x, z, v, mask, s, block=10_000)
+    blocked = falkon_matvec_masked_ref(x, z, v, mask, s, block=64)
+    torch.testing.assert_close(blocked, full, rtol=0, atol=1e-5 * float(full.abs().max()))
 
 
 def test_empty_inputs_give_empty_or_zero_outputs():
@@ -120,13 +182,15 @@ def test_cpu_path_counts_no_launches():
     kernels.reset_launch_counts()
     go.gram(x, z)
     fo.falkon_matvec(x, z, v)
+    fo.falkon_matvec(x, z, v, mask=torch.ones(x.shape[0]))
     fo.knm_t(x, z, y)
     fo.knm_matvec(x, z, v)
     w = torch.eye(z.shape[0])
     kernels.rls_score_ops.rls_score(x, z, w, torch.ones(z.shape[0], dtype=torch.bool), 1.0)
     kernels.quadform_ops.quadform(go.gram(x, z), w)
-    assert kernels.launch_counts() == {"gram": 0, "falkon_matvec": 0, "knm_t": 0,
-                                       "knm_matvec": 0, "rls_score": 0, "quadform": 0}
+    assert kernels.launch_counts() == {"gram": 0, "falkon_matvec": 0, "falkon_matvec_masked": 0,
+                                       "knm_t": 0, "knm_matvec": 0, "rls_score": 0,
+                                       "quadform": 0}
 
 
 def test_wrappers_refuse_mixed_or_unsupported_devices():
@@ -196,8 +260,9 @@ def test_every_launcher_is_defined_against_its_declaration():
     # name (a drifted signature then fails to compile) and include no
     # PyTorch header; only binding.cpp does.
     names = _launchers()
-    assert names == ["launch_gram", "launch_knm_matvec", "launch_knm_t_partial",
-                     "launch_reduce_partials", "launch_rls_score", "launch_quadform_partial"]
+    assert names == ["launch_gram", "launch_knm_matvec", "launch_knm_matvec_masked",
+                     "launch_knm_t_partial", "launch_reduce_partials", "launch_rls_score",
+                     "launch_quadform_partial"]
     pkg = build.CSRC.parent
     cu = {s: (pkg / s).read_text() for s in build.SOURCES if s.endswith(".cu")}
     for name in names:
@@ -218,5 +283,19 @@ def test_binding_checks_every_launch():
         stmt_end = text.index(";", end)
         after = text[stmt_end + 1:].lstrip()
         assert after.startswith("C10_CUDA_KERNEL_LAUNCH_CHECK();"), text[end - 40:stmt_end + 60]
-    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec", "rls_score", "quadform"):
+    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec", "falkon_matvec_masked",
+                 "rls_score", "quadform"):
         assert f'm.def("{name}", &{name}' in text
+    # K7's binding checks its mask and runs three launches, each checked
+    body = text[text.index("void falkon_matvec_masked("):text.index("// K5:")]
+    assert 'check(mask, "mask")' in body and "TORCH_CHECK(mask.dim() == 2" in body
+    assert body.count("repro::launch_") == 1 and "knm_t_launches(" in body
+
+
+def test_masked_stage_one_is_the_templated_k4_kernel():
+    # K7's mask multiply lives in the hand-written kernel: stage 1 is one
+    # kernel templated on MASKED, instantiated unmasked for K2/K4.
+    text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    assert "template <bool MASKED>" in text
+    assert "knm_matvec_kernel<false><<<" in text and "knm_matvec_kernel<true><<<" in text
+    assert "MASKED ? acc[q] * mask[o] : acc[q]" in text
