@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV and classifier
-paths on one H100.
+paths and its Jamba serving path on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
 
@@ -8,7 +8,7 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
 
   1. probe      card name, capability (must be (9, 0)), nvidia-smi name and
                 power limit, CUDA version; TF32 off for matmuls and cuDNN.
-  2. build      compile the seven CUDA kernels from the sources in this checkout.
+  2. build      compile the nine CUDA kernels from the sources in this checkout.
   3. parity     each kernel against its plain PyTorch version on the card, at
                 ragged shapes, all five kernel families, plus bf16 on the
                 gaussian family: K1 gram, K2 falkon_matvec, K3 knm_t, K4
@@ -70,10 +70,37 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 iterations), and the two margin columns negatives of each
                 other to 1e-5 of max|margin| (CG is homogeneous in b).
 
+  9. lm parity  K8 flash_attention and K9 ssd against their plain versions on
+                the card, fp32 and bf16: K8 causal and bidirectional, GQA
+                groups 1, 4 and 8, S in {1 000, 2 053}, D in {32, 80, 128},
+                and Jamba's layer (B = 4, Hq = 32, Hkv = 8, S = 2 048,
+                D = 128); K9 at S not a multiple of the chunk and Jamba's
+                layer (B = 4, S = 2 048, H = 128, P = 64, N = 16), y and the
+                final state.
+ 10. decode     jamba-v0.1-52b at full width cut to 8 layers (one period
+                group: the 32 layers' 104 GB in bf16 exceed the card), fp32,
+                capacity_factor 16 (no drops), random weights from --seed:
+                prefill_logits on one 128-token prompt (K8 + K9) against 128
+                decode_step calls (no kernel) on the same tokens; counts reset
+                before each and read after.
+ 11. serve      the same model in bf16 at the config's capacity_factor:
+                prefill_logits on 4 prompts of 2 048 tokens timed warm
+                (prefill tokens/s), then ServeEngine(max_len=256,
+                batch_slots=4): three 32-token requests start, a fourth joins
+                after 8 steps, 32 decode steps (decode tokens/s, each slot's
+                tokens); counts reset before the prefill and read after the
+                serving. Then K8 and K9 at the shapes the prefill gives them
+                (taken from the config) in the model's dtype: parity, and
+                times beside the bound, the plain version and (K8)
+                scaled_dot_product_attention; K9 also at the wrapper's
+                default chunk (128) beside the model's (64).
+
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
 form); bf16 3e-2 * max|ref|; end-to-end predictions and variances 1e-3 *
-max (beyond the fp32 TorchBackend's own distance from the fp64 referee).
+max (beyond the fp32 TorchBackend's own distance from the fp64 referee);
+K8 2e-5 (bf16 2e-2) and K9 2e-4 (bf16 3e-2) * max|ref| (tests/test_kernels.py);
+decode against forward 5e-3 * max|logit| (tests/test_models.py).
 Any failed phase exits non-zero. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -99,8 +126,10 @@ KNM_TOL = 1e-4
 SCORE_RTOL, SCORE_ATOL = 5e-4, 5e-5
 BF16_TOL = 3e-2
 E2E_TOL = 1e-3
-#: NVIDIA H100 SXM data-sheet peaks (dense, non-tensor fp32; HBM3).
+#: NVIDIA H100 SXM data-sheet peaks (dense, non-tensor fp32; dense bf16 on
+#: the tensor cores; HBM3).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 #: kernel name -> (CUDA source, the TPU kernel it replaces).
@@ -120,6 +149,19 @@ KERNELS = {
     "quadform": ("src/repro_torch/kernels/quadform/quadform.cu",
                  "src/repro/kernels/quadform/quadform.py:51"),
 }
+#: the LM kernels (phases 9-11), as KERNELS (which holds the FALKON paths' seven).
+LM_KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:67"),
+    "ssd": ("src/repro_torch/kernels/ssd/ssd.cu", "src/repro/kernels/ssd/ssd.py:81"),
+}
+#: the reference tests' tolerances (tests/test_kernels.py), scaled to max|ref|.
+ATTN_TOL, ATTN_BF16_TOL = 2e-5, 2e-2
+SSD_TOL, SSD_BF16_TOL = 2e-4, 3e-2
+#: decode against forward (tests/test_models.py's tolerance), scaled to max|logit|.
+DECODE_TOL = 5e-3
+#: the one configuration of the repo that runs both LM kernels.
+LM_ARCH = "jamba-v0.1-52b"
 #: the kernels each main path must launch (K6 also on the BLESS path when a
 #: ladder level holds more than 1 024 distinct centers).
 UNIFORM_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec", "quadform")
@@ -1096,6 +1138,361 @@ def classify(device, t: dict, center_set, bless_test_error: float, *, lam: float
 
 
 # ---------------------------------------------------------------------------
+# 9-11. the LM: K8 and K9 parity, decode against forward, serving
+# ---------------------------------------------------------------------------
+
+#: K8 parity cases (B, Hq, Hkv, S, D, causal): GQA groups 1, 4 and 8, ragged S
+#: and D, and Jamba's attention layer at 4 prompts of 2 048 tokens.
+ATTN_CASES = [(1, 8, 8, 1000, 32, True), (1, 8, 2, 2053, 80, True), (1, 8, 1, 1000, 128, False),
+              (2, 4, 1, 2053, 32, False), (4, 32, 8, 2048, 128, True)]
+#: K9 parity cases (B, S, H, P, N, chunk): S not a multiple of the chunk, and
+#: Jamba's Mamba layer at 4 prompts of 2 048 tokens with the model's chunk.
+SSD_CASES = [(1, 1000, 3, 64, 16, 64), (2, 2053, 4, 32, 8, 128), (4, 2048, 128, 64, 16, 64)]
+
+
+def lm_config(*, n_layers: int = 8, **overrides):
+    """Jamba v0.1 at full width, cut to ``n_layers`` (one period group of 8:
+    the 32 layers' 52 B parameters, 104 GB in bf16, exceed the card)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers, **overrides)
+
+
+def attention_inputs(device, b, hq, hkv, s, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((b, h, s, d), generator=g, device=device).to(dtype)
+                 for h in (hq, hkv, hkv))
+
+
+def ssd_inputs(device, b, s, h, p, n, dtype, seed):
+    """x, dt = softplus(N(0, 1)), a = -exp(0.3 N(0, 1)), B, C = 0.5 N(0, 1):
+    the reference kernel tests' distributions; x, B and C in ``dtype`` (as
+    the Mamba block's convolution gives them), dt and a in fp32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=device))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=g, device=device))
+    bm = (0.5 * torch.randn((b, s, n), generator=g, device=device)).to(dtype)
+    cm = (0.5 * torch.randn((b, s, n), generator=g, device=device)).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def lm_kernel_parity(device, *, attn_cases=ATTN_CASES, ssd_cases=SSD_CASES, seed: int = 0) -> dict:
+    """Phase 9: K8 and K9 against their plain versions on ``device``, fp32
+    and bf16; returns {kernel: worst fp32 max abs error}; raises past a
+    tolerance (each scaled to max|ref|)."""
+    from repro_torch.kernels import flash_attention_ops as fa
+    from repro_torch.kernels import ssd_ops as so
+
+    worst = {"flash_attention": 0.0, "ssd": 0.0}
+    bad = []
+
+    def check(name, tag, out, ref, tol, fp32):
+        err, scale = _err(out.float(), ref.float())
+        log(f"parity {name}/{tag}: max_abs_err={err:.3e} tol={tol * scale:.3e} "
+            f"max|ref|={scale:.3e}")
+        if fp32:
+            worst[name] = max(worst[name], err)
+        if out.shape != ref.shape or not err <= tol * scale:
+            bad.append(f"{name}/{tag}: {err:.3e} > {tol * scale:.3e}")
+
+    for i, (b, hq, hkv, s, d, causal) in enumerate(attn_cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            q, k, v = attention_inputs(device, b, hq, hkv, s, d, dtype, seed + i)
+            tag = f"{b}x{hq}/{hkv}x{s}x{d}/{'causal' if causal else 'full'}/{str(dtype)[6:]}"
+            check("flash_attention", tag, fa.flash_attention(q, k, v, causal=causal),
+                  fa.flash_attention_reference(q, k, v, causal=causal),
+                  ATTN_TOL if fp32 else ATTN_BF16_TOL, fp32)
+            del q, k, v
+    for i, (b, s, h, p, n, chunk) in enumerate(ssd_cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            args = ssd_inputs(device, b, s, h, p, n, dtype, seed + 100 + i)
+            y, st = so.ssd(*args, chunk=chunk)
+            yr, sr = so.ssd_reference(*args, chunk=chunk)
+            tag = f"{b}x{s}x{h}x{p}x{n}/chunk{chunk}/{str(dtype)[6:]}"
+            tol = SSD_TOL if fp32 else SSD_BF16_TOL
+            check("ssd", tag + "/y", y, yr, tol, fp32)
+            check("ssd", tag + "/state", st, sr, tol, fp32)
+            del args, y, st, yr, sr
+    sync(device)
+    if bad:
+        raise PhaseError("LM kernel parity failed: " + "; ".join(bad))
+    return worst
+
+
+def _free(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def decode_vs_forward(device, cfg=None, *, prompt: int = 128, seed: int = 0) -> dict:
+    """Phase 10: one prompt through ``prefill_logits`` (K8 + K9 on the card)
+    against ``prompt`` ``decode_step`` calls (no kernel) on the same tokens,
+    in fp32 with ``capacity_factor`` 16 so the forward drops no token (the
+    reference test's setting). Counts reset before each and read after;
+    gate: max|delta| <= 5e-3 max|logit|, K8 >= 1 and K9 >= 7 launches in the
+    forward, none in the decode."""
+    from repro_torch import kernels
+    from repro_torch.models import LM
+    from repro_torch.serving import prefill_logits
+
+    cfg = cfg or lm_config(dtype="float32", capacity_factor=16.0)
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=seed, device=str(device))
+    sync(device)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g, device=device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    want = prefill_logits(lm, {"tokens": tokens}).float()
+    sync(device)
+    forward_s = time.perf_counter() - t0
+    fwd_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    cache = lm.init_cache(1, prompt)
+    t0 = time.perf_counter()
+    for t in range(prompt):
+        got = lm.decode_step(cache, tokens[:, t], t, length=t + 1)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    dec_launches = kernels.launch_counts()
+    err, scale = _err(got.float(), want)
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_mamba = cfg.n_layers - n_attn
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "capacity_factor": cfg.capacity_factor, "prompt": prompt,
+           "params": sum(p.numel() for p in lm.parameters()), "init_s": init_s,
+           "forward_s": forward_s, "decode_s": decode_s, "max_abs_delta": err,
+           "max_logit": scale, "delta_over_max": err / scale,
+           "forward_launches": {n: fwd_launches[n] for n in LM_KERNELS},
+           "decode_launches": {n: dec_launches[n] for n in LM_KERNELS},
+           "launches": fwd_launches}
+    log(f"decode vs forward: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}")
+    del lm, cache, want, got
+    _free(device)
+    bad = []
+    if not err <= DECODE_TOL * scale:
+        bad.append(f"decode differs from the forward by {err:.3e} > {DECODE_TOL} x {scale:.3e}")
+    if torch.device(device).type == "cuda":
+        if fwd_launches["flash_attention"] < n_attn or fwd_launches["ssd"] < n_mamba:
+            bad.append(f"the forward launched K8 {fwd_launches['flash_attention']} and K9 "
+                       f"{fwd_launches['ssd']} times (want >= {n_attn} and >= {n_mamba})")
+    if any(dec_launches[n] for n in LM_KERNELS):
+        bad.append(f"the decode launched an LM kernel: {res['decode_launches']}")
+    if bad:
+        raise PhaseError("decode vs forward failed: " + "; ".join(bad))
+    return res
+
+
+def _ops_ms(contractions: float, elementwise: float, tensor_cores: bool) -> float:
+    """Least ms for the operations: the contractions over the bf16
+    tensor-core peak (``tensor_cores``) or the fp32 peak, the elementwise
+    work over the fp32 peak, the two times added."""
+    peak = PEAK_BF16_TENSOR_FLOPS if tensor_cores else PEAK_FP32_FLOPS
+    return (contractions / peak + elementwise / PEAK_FP32_FLOPS) * 1e3
+
+
+def attention_bound(b, hq, hkv, s, d, causal, itemsize, *,
+                    tensor_cores: bool | None = None) -> tuple[float, str]:
+    """(least ms, bound) for K8: q, k, v read and the output written once;
+    per unmasked (query, key) pair 4 D operations in the two contractions
+    and 4 in the softmax (max, subtract, exp, sum). With bf16 operands
+    (``itemsize`` 2; ``tensor_cores`` overrides) the contractions go over
+    the bf16 tensor-core peak, as a flash attention on the tensor cores
+    (scaled_dot_product_attention) runs them; with fp32 operands over the
+    fp32 peak."""
+    if tensor_cores is None:
+        tensor_cores = itemsize == 2
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = _ops_ms(b * hq * pairs * 4 * d, b * hq * pairs * 4, tensor_cores)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound(b, s, h, p, n, chunk, itemsize, *,
+              tensor_cores: bool | None = None) -> tuple[float, str]:
+    """(least ms, bound) for K9 at ``chunk``: x, B, C read and y written
+    once in their dtype (``itemsize``), dt read and the state written once
+    in fp32. Contractions per chunk of Q rows: C B^T once per batch row (2 N
+    per pair k <= q); per head y_diag (2 P per pair), y_off and the state
+    (2 P N per row each). Elementwise per head: L and C B^T * L (3 per
+    pair), the decays of y_off and of dt x (2 P per row), the state's decay
+    and sum (2 P N). Contractions over the bf16 tensor-core peak with bf16 operands
+    (``tensor_cores`` overrides), else over the fp32 peak."""
+    if tensor_cores is None:
+        tensor_cores = itemsize == 2
+    nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    contractions = elementwise = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) // 2
+        contractions += b * 2 * n * pairs + b * h * (pairs * 2 * p + q * 4 * p * n)
+        elementwise += b * h * (pairs * 3 + q * 2 * p + 2 * p * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = _ops_ms(contractions, elementwise, tensor_cores)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def serve(device, cfg=None, *, batch: int = 4, prompt: int = 2048, repeats: int = 3,
+          slots: int = 4, max_len: int = 256, serve_prompt: int = 32, steps: int = 32,
+          join_at: int = 8, seed: int = 0) -> dict:
+    """Phase 11, in the model's dtype: ``prefill_logits`` on ``batch`` prompts
+    of ``prompt`` tokens timed warm (prefill tokens/s), then ServeEngine with
+    ``slots`` slots: three requests of ``serve_prompt`` tokens start, a
+    fourth joins after ``join_at`` steps, ``steps`` decode steps (decode
+    tokens/s). Counts reset before the prefill and read after the serving.
+    Then K8 and K9 at the shapes the prefill gives them (``lm_kernel_times``).
+    Gates: finite logits, each slot's output as long as its steps."""
+    from repro_torch import kernels
+    from repro_torch.models import LM, mamba2
+    from repro_torch.models.model import model_dtype
+    from repro_torch.serving import ServeEngine, prefill_logits
+
+    cfg = cfg or lm_config()
+    on_card = torch.device(device).type == "cuda"
+    lm = LM(cfg, seed=seed, device=str(device))
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=device)
+    logits = prefill_logits(lm, {"tokens": tokens})  # warm-up
+    sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        logits = prefill_logits(lm, {"tokens": tokens})
+    sync(device)
+    prefill_s = (time.perf_counter() - t0) / repeats
+    finite = bool(torch.all(torch.isfinite(logits.float())))
+
+    eng = ServeEngine(lm, max_len=max_len, batch_slots=slots, device=str(device))
+    prompts = torch.randint(0, cfg.vocab_size, (slots, serve_prompt),
+                            generator=torch.Generator().manual_seed(seed + 2)).tolist()
+    t0 = time.perf_counter()
+    for slot in range(slots - 1):
+        eng.add_request(slot, prompts[slot])
+    sync(device)
+    add_s = time.perf_counter() - t0
+    decode_s, decoded = 0.0, 0
+    for i in range(steps):
+        if i == join_at:
+            t0 = time.perf_counter()
+            eng.add_request(slots - 1, prompts[slots - 1])
+            sync(device)
+            add_s += time.perf_counter() - t0
+        active = int(eng.active.sum())
+        t0 = time.perf_counter()
+        eng.step()
+        sync(device)
+        decode_s += time.perf_counter() - t0
+        decoded += active
+    launches = kernels.launch_counts()
+    last = lm.decode_step(eng.cache, eng.tokens, eng.pos, length=eng.pos + 1)
+    finite = finite and bool(torch.all(torch.isfinite(last.float())))
+    outputs = [eng.finish(s) for s in range(slots)]
+    want_len = [1 + steps] * (slots - 1) + [1 + steps - join_at]
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+           "prompt": prompt, "prefill_s": prefill_s, "prefill_tokens_per_s":
+           batch * prompt / prefill_s, "serve_slots": slots, "serve_prompt": serve_prompt,
+           "decode_steps": steps, "decode_s": decode_s, "decode_tokens_per_s": decoded / decode_s,
+           "decode_ms_per_step": decode_s / steps * 1e3, "add_request_s": add_s,
+           "logits_finite": finite, "output_lengths": [len(o) for o in outputs],
+           "launches": launches}
+    log(f"serve: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}")
+    for s, out in enumerate(outputs):
+        log(f"serve slot {s}: {json.dumps(out)}")
+
+    del eng, logits, last, lm
+    _free(device)
+    # K8 and K9 at the prefill's shapes: Jamba's attention layer and Mamba layer
+    res["kernels"] = lm_kernel_times(
+        device, (batch, cfg.n_heads, cfg.n_kv_heads, prompt, cfg.head_dim),
+        (batch, prompt, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), mamba2.CHUNK,
+        model_dtype(cfg), seed=seed, timed=on_card)
+    _free(device)
+    bad = []
+    if not finite:
+        bad.append("non-finite logits")
+    if res["output_lengths"] != want_len:
+        bad.append(f"output lengths {res['output_lengths']}, want {want_len}")
+    if on_card and not (launches["flash_attention"] >= 1 and launches["ssd"] >= 1):
+        bad.append(f"kernels not launched on the serving path: "
+                   f"{ {n: launches[n] for n in LM_KERNELS} }")
+    if bad:
+        raise PhaseError("serve failed: " + "; ".join(bad))
+    return res
+
+
+def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 0,
+                    timed: bool = True, repeats: int = 5, plain_repeats: int = 2,
+                    default_chunk: int = 128) -> dict:
+    """K8 (causal) at ``attn_shape`` (B, Hq, Hkv, S, D) and K9 at
+    ``ssd_shape`` (B, S, H, P, N) and ``chunk``, on phase 9's inputs in
+    ``dtype``: parity with the plain version (phase 9's tolerances) and, if
+    ``timed``, CUDA-event times of kernel, plain version and library call
+    (SDPA for K8; none for K9) beside the bound. K9 is also checked and
+    timed at the wrapper's ``default_chunk``."""
+    def ms(fn, r):
+        return _cuda_ms(fn, r) if timed else None
+
+    from repro_torch.kernels import flash_attention_ops as fa
+    from repro_torch.kernels import ssd_ops as so
+
+    bf16 = dtype == torch.bfloat16
+    out, bad = {}, []
+    b, hq, hkv, s, d = attn_shape
+    q, k, v = attention_inputs(device, b, hq, hkv, s, d, dtype, seed)
+    err, scale = _err(fa.flash_attention(q, k, v, causal=True).float(),
+                      fa.flash_attention_reference(q, k, v, causal=True).float())
+    tol = (ATTN_BF16_TOL if bf16 else ATTN_TOL) * scale
+    if not err <= tol:
+        bad.append(f"flash_attention: {err:.3e} > {tol:.3e}")
+    b_ms, b_by = attention_bound(b, hq, hkv, s, d, True, q.element_size())
+    out["flash_attention"] = {
+        "shape": list(attn_shape), "dtype": str(dtype)[6:], "causal": True,
+        "max_abs_err": err, "tol": tol,
+        "ms": ms(lambda: fa.flash_attention(q, k, v, causal=True), repeats),
+        "plain_ms": ms(lambda: fa.flash_attention_reference(q, k, v, causal=True),
+                       plain_repeats),
+        "library_ms": ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), repeats),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_fp32_ms": attention_bound(b, hq, hkv, s, d, True, q.element_size(),
+                                         tensor_cores=False)[0]}
+    del q, k, v
+    bsz, sl, h, p, n = ssd_shape
+    args = ssd_inputs(device, bsz, sl, h, p, n, dtype, seed + 100)
+    stol = SSD_BF16_TOL if bf16 else SSD_TOL
+    for c in (chunk, default_chunk):
+        y, st = so.ssd(*args, chunk=c)
+        yr, sr = so.ssd_reference(*args, chunk=c)
+        (ey, sy), (es, ss) = _err(y.float(), yr.float()), _err(st, sr)
+        del y, st, yr, sr
+        if not (ey <= stol * sy and es <= stol * ss):
+            bad.append(f"ssd/chunk{c}: y {ey:.3e} (tol {stol * sy:.3e}), state {es:.3e} "
+                       f"(tol {stol * ss:.3e})")
+        b_ms, b_by = ssd_bound(bsz, sl, h, p, n, c, args[0].element_size())
+        out["ssd" if c == chunk else f"ssd_chunk{c}"] = {
+            "shape": list(ssd_shape), "chunk": c, "dtype": str(dtype)[6:],
+            "max_abs_err": max(ey, es), "y_err": ey, "y_tol": stol * sy, "state_err": es,
+            "state_tol": stol * ss, "ms": ms(lambda: so.ssd(*args, chunk=c), repeats),
+            "plain_ms": ms(lambda: so.ssd_reference(*args, chunk=c), plain_repeats),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_fp32_ms": ssd_bound(bsz, sl, h, p, n, c, args[0].element_size(),
+                                       tensor_cores=False)[0]}
+        if c == chunk == default_chunk:
+            break
+    for name, t in out.items():
+        log(f"times {name}: {json.dumps(t)}")
+    if bad:
+        raise PhaseError("LM kernels at the main path's shapes: " + "; ".join(bad))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1127,19 +1524,29 @@ def main(argv=None) -> int:
         del calls
         cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
         clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
+        del tensors, bless_t  # the LM phases need the card's memory
+        _free("cuda")
+        lm_worst = lm_kernel_parity("cuda", seed=args.seed)
+        dvf = decode_vs_forward("cuda", seed=args.seed)
+        srv = serve("cuda", seed=args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
-    # launches: the four main paths' counts added (each reset just before its path)
-    paths = (e2e, fb, cv, clf)
-    launches = {name: sum(p["launches"][name] for p in paths) for name in KERNELS}
+    # launches: the main paths' counts added (each reset just before its path):
+    # the four FALKON paths for K1-K7, the LM forward of phase 10 and the
+    # prefill + serving of phase 11 for K8 and K9
+    paths = (e2e, fb, cv, clf, dvf, srv)
+    launches = {name: sum(p["launches"][name] for p in paths) for name in {**KERNELS,
+                                                                             **LM_KERNELS}}
+    for name in LM_KERNELS:
+        errs[name] = srv["kernels"][name]["max_abs_err"]
+        times[name] = srv["kernels"][name]
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name]["ms"],
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[name], "max_abs_err": errs[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"]}
-        for name in KERNELS]}
+        for name, (src, tpu) in {**KERNELS, **LM_KERNELS}.items()]}
     kernel_s = sum(e2e["launches"][n] * times[n]["ms"] for n in ("gram", "falkon_matvec",
                                                                   "knm_t")) / 1e3
     log(f"uniform fit: {e2e['fit_s']:.3f} s, of which kernels {kernel_s:.3f} s (launches x ms), "
@@ -1158,7 +1565,16 @@ def main(argv=None) -> int:
         f"classifier fit {clf['fit_s']:.3f} s, accuracy {clf['accuracy']:.5f} against "
         f"{clf['one_minus_bless_error']:.5f}; launches CV path {json.dumps(cv['launches'])}, "
         f"classifier path {json.dumps(clf['launches'])}")
-    log(f"parity at ragged shapes, worst fp32 max_abs_err: {json.dumps(parity_worst)}")
+    log(f"LM (Jamba, {dvf['n_layers']} layers at full width): decode vs forward "
+        f"{dvf['delta_over_max']:.3e} of max|logit| in fp32; prefill "
+        f"{srv['prefill_tokens_per_s']:.1f} tokens/s ({srv['batch']} x {srv['prompt']}, bf16), "
+        f"decode {srv['decode_tokens_per_s']:.2f} tokens/s ({srv['decode_ms_per_step']:.2f} ms "
+        f"per step, {srv['serve_slots']} slots); K8 {srv['kernels']['flash_attention']['ms']:.4f} "
+        f"ms, K9 {srv['kernels']['ssd']['ms']:.4f} ms per call (at the wrapper's default chunk 128: "
+        f"{srv['kernels']['ssd_chunk128']['ms']:.4f} ms, plain "
+        f"{srv['kernels']['ssd_chunk128']['plain_ms']:.4f} ms)")
+    log(f"parity at ragged shapes, worst fp32 max_abs_err: "
+        f"{json.dumps({**parity_worst, **lm_worst})}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
     log(json.dumps(record))

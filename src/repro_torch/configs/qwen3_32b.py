@@ -1,0 +1,9 @@
+"""qwen3-32b [dense] — qk_norm, GQA kv=8. [hf:Qwen/Qwen3-32B]"""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=25_600, vocab_size=151_936,
+    qk_norm=True, rope_theta=1_000_000.0,
+)

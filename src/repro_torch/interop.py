@@ -6,8 +6,10 @@ the port; ``bless_result_from_numpy`` does the same for every level of a
 BLESS ladder, so both packages can score identical center sets;
 ``model_from_numpy`` turns a fitted JAX ``FalkonModel`` (its
 centers, coefficients, kernel parameters and fit metadata) into the port's,
-so a JAX fit can be predicted by the port. Neither imports anything of JAX:
-the caller converts with ``numpy.asarray``.
+so a JAX fit can be predicted by the port; ``lm_params_from_numpy`` turns
+the reference LM's parameter pytree into the ``state_dict`` of the port's
+``LM``. None imports anything of JAX: the caller converts with
+``numpy.asarray`` (``jax.tree.map(np.asarray, params)`` for a pytree).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .core.bless import BlessLevel, BlessResult
 from .core.falkon import FalkonModel
 from .core.gram import make_kernel
 from .core.leverage import CenterSet
+from .models.config import ArchConfig
 
 
 def center_set_from_numpy(idx, weight, mask, count) -> CenterSet:
@@ -62,3 +65,65 @@ def model_from_numpy(centers, alpha, kernel_name: str, sigma: float, kappa_sq: f
                                           kappa_sq=float(kappa_sq)),
                        backend=backend, lam=None if lam is None else float(lam),
                        n_train=None if n_train is None else int(n_train), a_diag=t(a_diag))
+
+
+#: the reference's model-axis width, to which it pads q heads (``model.py:TP``).
+REFERENCE_TP = 16
+
+
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor of numpy array ``a``, dtype kept (ml_dtypes bfloat16 too)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``LM(cfg).state_dict()`` (CPU tensors, dtypes kept) from the
+    reference's ``init_params(cfg, key)`` pytree given as numpy arrays.
+
+    The reference stacks each period position j over groups
+    (``blocks/blk{j}``, leading axis g); layer ``g * period + j`` of the port
+    gets slice g. The reference pads q heads to a multiple of its 16-way
+    model axis (and, when ``n_kv_heads == n_heads``, the kv heads with them)
+    and masks the padded heads before ``wo``; their ``wq`` columns, ``wk`` /
+    ``wv`` columns and ``wo`` rows are dropped, which is exact. Where q heads
+    are padded but kv heads are not (grouped-query configurations whose
+    ``n_heads`` is not a multiple of 16), the reference's padded grouping
+    sends real q heads to other kv heads than ``h // (n_heads / n_kv_heads)``
+    and the model is not the unpadded one: such configurations raise.
+    """
+    hp = cfg.padded_heads(REFERENCE_TP)
+    mha = cfg.n_kv_heads == cfg.n_heads
+    if hp != cfg.n_heads and not mha:
+        raise ValueError(
+            f"{cfg.name}: the reference pads {cfg.n_heads} q heads to {hp} over "
+            f"{cfg.n_kv_heads} kv heads, which regroups the real heads; its model is not "
+            "the unpadded one the port runs")
+    q_cols = cfg.n_heads * cfg.head_dim
+    kv_cols = cfg.n_kv_heads * cfg.head_dim
+    out: dict[str, torch.Tensor] = {}
+    for name in ("final_norm", "embed", "out_head"):
+        if name in params:
+            out[name] = _tensor(params[name])
+
+    def put(prefix: str, tree: dict, g: int) -> None:
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                put(f"{prefix}{key}.", val, g)
+                continue
+            a = np.asarray(val)[g]
+            if prefix.endswith("attn."):
+                if key == "wq":
+                    a = a[:, :q_cols]
+                elif key in ("wk", "wv"):
+                    a = a[:, :kv_cols]
+                elif key == "wo":
+                    a = a[:q_cols]
+            out[prefix + key] = _tensor(a)
+
+    for g in range(cfg.n_groups):
+        for j in range(cfg.layer_period):
+            put(f"layers.{g * cfg.layer_period + j}.", params["blocks"][f"blk{j}"], g)
+    return out

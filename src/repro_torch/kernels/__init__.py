@@ -6,9 +6,11 @@ tensors and runs the plain version for CPU tensors. ``build.py`` compiles
 the sources on first use; importing this package compiles nothing.
 """
 from .falkon_matvec import ops as falkon_matvec_ops
+from .flash_attention import ops as flash_attention_ops
 from .gram import ops as gram_ops
 from .quadform import ops as quadform_ops
 from .rls_score import ops as rls_score_ops
+from .ssd import ops as ssd_ops
 
 #: every kernel wrapper, by the name the launch counts are reported under.
 WRAPPERS = {
@@ -19,6 +21,8 @@ WRAPPERS = {
     "knm_matvec": falkon_matvec_ops.knm_matvec,
     "rls_score": rls_score_ops.rls_score,
     "quadform": quadform_ops.quadform,
+    "flash_attention": flash_attention_ops.flash_attention,
+    "ssd": ssd_ops.ssd,
 }
 
 

@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 NAME = "repro_torch_kernels"
 #: every source of the extension, relative to the kernels package.
 SOURCES = ["csrc/binding.cpp", "gram/gram.cu", "falkon_matvec/falkon_matvec.cu",
-           "rls_score/rls_score.cu", "quadform/quadform.cu"]
+           "rls_score/rls_score.cu", "quadform/quadform.cu",
+           "flash_attention/flash_attention.cu", "ssd/ssd.cu"]
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 CXX_FLAGS = ["-O3"]
 

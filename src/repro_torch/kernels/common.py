@@ -18,13 +18,16 @@ def pad_dim(x: torch.Tensor, axis: int, to: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
 
 
-def require_cuda(t: torch.Tensor, name: str) -> torch.Tensor:
-    """Check that ``t`` can be handed to a kernel: a float32 tensor on a CUDA
-    device. Returns it contiguous (a no-op for the callers on the main path)."""
+def require_cuda(t: torch.Tensor, name: str,
+                 dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> torch.Tensor:
+    """Check that ``t`` can be handed to a kernel: a tensor of one of
+    ``dtypes`` (float32 unless the kernel takes more) on a CUDA device.
+    Returns it contiguous (a no-op for the callers on the main path)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        allowed = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be {allowed}, got {t.dtype}")
     return t.contiguous()
 
 

@@ -22,6 +22,14 @@ void check(const at::Tensor& t, const char* name) {
 
 int dim(const at::Tensor& t, int i) { return static_cast<int>(t.size(i)); }
 
+// A CUDA, contiguous tensor of fp32 or bf16 (K8's and K9's activations).
+void check_act(const at::Tensor& t, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == at::kFloat || t.scalar_type() == at::kBFloat16, name,
+              " must be float32 or bfloat16");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
 // K_nM^T y through its two launches; n may be 0 (the chunks then sum to 0).
 void knm_t_launches(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y,
                     at::Tensor& partial, at::Tensor& out, int64_t chunk_rows, int64_t fam,
@@ -176,6 +184,66 @@ void quadform(const at::Tensor& g, const at::Tensor& w, at::Tensor& partial, at:
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K8: out (b, hq, s, d) = attention of q (b, hq, s, d) over k, v (b, hkv, s, d),
+// one dtype for all four.
+void flash_attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+                     at::Tensor& out, bool causal, double scale) {
+  check_act(q, "q");
+  check_act(k, "k");
+  check_act(v, "v");
+  check_act(out, "out");
+  TORCH_CHECK(k.scalar_type() == q.scalar_type() && v.scalar_type() == q.scalar_type() &&
+                  out.scalar_type() == q.scalar_type(),
+              "q, k, v and out must share one dtype");
+  TORCH_CHECK(q.dim() == 4 && k.sizes() == v.sizes() && k.dim() == 4 && out.sizes() == q.sizes() &&
+                  k.size(0) == q.size(0) && k.size(2) == q.size(2) && k.size(3) == q.size(3),
+              "need q (b, hq, s, d) and k, v (b, hkv, s, d)");
+  TORCH_CHECK(k.size(1) > 0 && q.size(1) % k.size(1) == 0, "hq must be a multiple of hkv");
+  TORCH_CHECK(q.size(3) >= 1 && q.size(3) <= 128, "flash_attention takes a head dim of 1 to 128");
+  if (q.numel() == 0) return;
+  const c10::cuda::CUDAGuard guard(q.device());
+  repro::launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                dim(q, 0), dim(q, 1), dim(k, 1), dim(q, 2), dim(q, 3),
+                                static_cast<float>(scale), causal,
+                                q.scalar_type() == at::kBFloat16,
+                                at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K9: y (bsz, s, h, p) in x's dtype and state (bsz, h, p, n) fp32 from x, dt
+// (bsz, s, h), a (h,) and b, c (bsz, s, n), chunks of `chunk` rows.
+void ssd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& a, const at::Tensor& b,
+         const at::Tensor& c, at::Tensor& y, at::Tensor& state, int64_t chunk) {
+  check_act(x, "x");
+  check_act(y, "y");
+  check(dt, "dt");
+  check(a, "a");
+  check(b, "b");
+  check(c, "c");
+  check(state, "state");
+  TORCH_CHECK(y.scalar_type() == x.scalar_type() && y.sizes() == x.sizes(),
+              "y must match x in dtype and shape");
+  TORCH_CHECK(x.dim() == 4 && dt.dim() == 3 && dt.size(0) == x.size(0) &&
+                  dt.size(1) == x.size(1) && dt.size(2) == x.size(2) && a.dim() == 1 &&
+                  a.size(0) == x.size(2) && b.dim() == 3 && b.sizes() == c.sizes() &&
+                  b.size(0) == x.size(0) && b.size(1) == x.size(1) && state.dim() == 4 &&
+                  state.size(0) == x.size(0) && state.size(1) == x.size(2) &&
+                  state.size(2) == x.size(3) && state.size(3) == b.size(2),
+              "need x (b, s, h, p), dt (b, s, h), a (h,), b, c (b, s, n), state (b, h, p, n)");
+  TORCH_CHECK(chunk >= 1, "chunk must be positive");
+  const int p = dim(x, 3), n = dim(b, 2), q = static_cast<int>(chunk);
+  TORCH_CHECK(repro::ssd_smem_floats(p, n, q) * 4 <= 232448,
+              "ssd: head dim ", p, ", state dim ", n, " and chunk ", q,
+              " need more than the 227 KB of shared memory a block may use");
+  if (x.size(0) == 0 || x.size(2) == 0 || p == 0 || n == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  repro::launch_ssd(x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), b.data_ptr<float>(),
+                    c.data_ptr<float>(), y.data_ptr(), state.data_ptr<float>(), dim(x, 0),
+                    dim(x, 1), dim(x, 2), p, n, q, x.scalar_type() == at::kBFloat16,
+                    at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gram", &gram, "K1: dense Gram matrix");
   m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
@@ -185,4 +253,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K7: K_nM^T diag(mask_j) K_nM v_j per column");
   m.def("rls_score", &rls_score, "K5: fused Eq. 3 score");
   m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
+  m.def("flash_attention", &flash_attention, "K8: causal or bidirectional GQA attention");
+  m.def("ssd", &ssd, "K9: the Mamba-2 SSD chunk scan");
 }

@@ -4,7 +4,8 @@
 // after every call. The .cu sources define these with qualified names, so a
 // definition that drifts from its declaration here does not compile.
 //
-// All arrays are fp32, C-contiguous, on the current device.
+// All arrays are C-contiguous, on the current device, and fp32 unless a
+// declaration says otherwise (K8 and K9 take fp32 or bf16 activations).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,5 +46,23 @@ void launch_rls_score(const float* x, const float* z, const float* w, const floa
 // w (m, m), each row's rowsum((g w)[:, tile] * g[:, tile]) for g (n, m).
 void launch_quadform_partial(const float* g, const float* w, float* partial, int n, int m,
                              bool bf16, cudaStream_t st);
+
+// K8: out (b, hq, s, d) = softmax(q k^T * scale, masked causally if `causal`) v
+// for q (b, hq, s, d) and k, v (b, hkv, s, d), kv head h / (hq / hkv); q, k, v
+// and out all fp32, or all bf16 if `bf16`; d <= 128.
+void launch_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
+                            int hq, int hkv, int s, int d, float scale, bool causal, bool bf16,
+                            cudaStream_t st);
+
+// K9: the SSD chunk scan. y (bsz, s, h, p) and the final state (bsz, h, p, n),
+// fp32, from x (bsz, s, h, p), dt (bsz, s, h), a (h,), b and c (bsz, s, n), in
+// chunks of q rows; x and y fp32, or both bf16 if `bf16`.
+void launch_ssd(const void* x, const float* dt, const float* a, const float* b, const float* c,
+                void* y, float* state, int bsz, int s, int h, int p, int n, int q, bool bf16,
+                cudaStream_t st);
+
+// Floats of shared memory one K9 block takes for head dim p, state dim n and
+// chunk q.
+long long ssd_smem_floats(int p, int n, int q);
 
 }  // namespace repro

@@ -1,0 +1,109 @@
+"""Mamba-2 / SSD (state-space duality, arXiv:2405.21060) block.
+
+The port of the reference's ``repro.models.mamba2``. The full-sequence block
+runs the SSD scan through K9's wrapper (``kernels/ssd``): the kernel on a
+CUDA tensor, ``ssd_chunked`` (the plain version, re-exported here under the
+reference's name) on a CPU tensor. Decode is one recurrent step in plain
+PyTorch on either device, as in the reference.
+
+Shapes follow the paper: x (B, S, H, P), dt (B, S, H), A (H,) negative, one
+B/C group (B, S, N), state (B, H, P, N) fp32.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.ssd import ops as ssd_ops
+from ..kernels.ssd.ref import ssd_chunked
+from .layers import ninit, param, rms_norm
+
+__all__ = ["Mamba", "softplus", "ssd_chunked", "ssd_decode_step"]
+
+#: SSD chunk of the full-sequence block on both devices. The reference's block
+#: uses 256 (``mamba2.py:118``); the chunk changes only rounding, and 64 keeps
+#: K9's shared memory at 47 KB, several blocks per SM at Jamba's width.
+CHUNK = 64
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) without a cut-off (jax.nn.softplus's form; torch's
+    ``softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+                    a: torch.Tensor, b_t: torch.Tensor,
+                    c_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step. state (B, H, P, N); x_t (B, H, P); dt_t (B, H);
+    b_t/c_t (B, N). Returns (y_t (B, H, P) in x_t's dtype, new state fp32)."""
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * a.float())  # (B, H)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dtf, x_t.float(), b_t.float())
+    new = decay[..., None, None] * state.float() + upd
+    y = torch.einsum("bhpn,bn->bhp", new, c_t.float())
+    return y.to(x_t.dtype), new
+
+
+class Mamba(nn.Module):
+    """in_proj -> causal depthwise conv -> SSD -> gated RMSNorm -> out_proj."""
+
+    def __init__(self, cfg, *, generator: torch.Generator, dtype: torch.dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, di, ns, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.in_proj = param(ninit((d, 2 * di + 2 * ns + nh), **kw))
+        self.conv_w = param(ninit((cfg.ssm_conv, di + 2 * ns), scale=0.5, **kw))
+        self.a_log = param(torch.zeros((nh,), dtype=torch.float32, device=device))  # A = -1
+        self.dt_bias = param(torch.zeros((nh,), dtype=torch.float32, device=device))
+        self.d_skip = param(torch.ones((nh,), dtype=torch.float32, device=device))
+        self.norm = param(torch.zeros((di,), dtype=dtype, device=device))
+        self.out_proj = param(ninit((di, d), **kw))
+
+    def _split(self, zxbcdt: torch.Tensor):
+        di, ns = self.cfg.d_inner, self.cfg.ssm_state
+        return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ns], zxbcdt[..., 2 * di + 2 * ns:]
+
+    def _gate_out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        y = rms_norm(y * torch.nn.functional.silu(z), self.norm, self.cfg.norm_eps)
+        return y @ self.out_proj
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        """Full sequence. u (B, S, d_model) -> (B, S, d_model)."""
+        cfg = self.cfg
+        bsz, s, _ = u.shape
+        di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+        z, xbc, dt = self._split(u @ self.in_proj)
+        k = cfg.ssm_conv
+        xbc_pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
+        conv = xbc_pad[:, 0:s] * self.conv_w[0]  # the reference's order of terms
+        for i in range(1, k):
+            conv = conv + xbc_pad[:, i:i + s] * self.conv_w[i]
+        conv = torch.nn.functional.silu(conv)
+        x, b, c = conv[..., :di], conv[..., di:di + ns], conv[..., di + ns:]
+        dt = softplus(dt.float() + self.dt_bias)  # (B, S, nh)
+        a = -torch.exp(self.a_log)
+        x = x.reshape(bsz, s, nh, hp)
+        y, _ = ssd_ops.ssd(x.contiguous(), dt, a, b, c, chunk=CHUNK)
+        y = y + x * self.d_skip[None, None, :, None].to(y.dtype)
+        return self._gate_out(y.reshape(bsz, s, di), z)
+
+    def decode(self, u_t: torch.Tensor, cache: dict) -> torch.Tensor:
+        """One token. u_t (B, 1, d); ``cache`` {"conv": (B, k - 1, conv_dim),
+        "state": (B, H, P, N) fp32} is updated in place. Returns (B, 1, d)."""
+        cfg = self.cfg
+        bsz = u_t.shape[0]
+        di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+        z, xbc, dt = self._split(u_t[:, 0] @ self.in_proj)  # (B, *)
+        window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)  # (B, k, conv_dim)
+        conv = torch.einsum("bkc,kc->bc", window.float(), self.conv_w.float()).to(u_t.dtype)
+        conv = torch.nn.functional.silu(conv)
+        x, b, c = conv[..., :di], conv[..., di:di + ns], conv[..., di + ns:]
+        dtv = softplus(dt.float() + self.dt_bias)  # (B, nh)
+        a = -torch.exp(self.a_log)
+        y, new_state = ssd_decode_step(cache["state"], x.reshape(bsz, nh, hp), dtv, a, b, c)
+        y = y + x.reshape(bsz, nh, hp) * self.d_skip[None, :, None].to(y.dtype)
+        cache["conv"] = window[:, 1:]
+        cache["state"] = new_state.to(cache["state"].dtype)
+        return self._gate_out(y.reshape(bsz, di), z)[:, None, :]

@@ -1,0 +1,255 @@
+"""Model assembly: the LM stack for every configuration, forward and decode.
+
+The port of the reference's ``repro.models.model`` on one card. ``LM`` holds
+the embeddings, the final norm, the output head and one ``Block`` per layer
+(a mixer, attention or Mamba-2, and an MLP, dense or MoE, each after an
+RMSNorm, as ``ArchConfig`` lays them out). Where the reference stacks each
+period position's parameters over groups and scans them, the port keeps a
+flat ``layers`` list: layer ``g * period + j`` is the reference's
+``blocks/blk{j}`` at group ``g`` (``repro_torch.interop`` unstacks them).
+
+The reference pads q heads to a multiple of its 16-way model axis and
+masks the padded heads before ``wo`` (exact, shard-friendly); that is a
+sharding artefact, and the port uses ``n_heads`` and ``n_kv_heads`` as given.
+Training (``loss_fn``), the sharding specs and BLESS-Nystrom attention are
+later slices of the port.
+
+Decode caches are plain dicts, one per layer, updated in place by
+``decode_step`` (the reference returns a new cache pytree).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from .attention import attention, decode_attention
+from .config import ArchConfig
+from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
+                     sinusoidal_pos)
+from .mamba2 import Mamba
+from .moe import MoE
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    return (cfg.vocab_size + 127) // 128 * 128
+
+
+def model_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Attention(nn.Module):
+    """q/k/v projections, optional qk-norm, rotary positions, exact attention
+    (K8 on the card), output projection."""
+
+    def __init__(self, cfg: ArchConfig, *, generator: torch.Generator, dtype: torch.dtype,
+                 device):
+        super().__init__()
+        if cfg.attention_impl == "bless_nystrom":
+            raise NotImplementedError(
+                "attention_impl='bless_nystrom' (BLESS-Nystrom attention) is a later slice of "
+                "the port (ROADMAP A, slice 5)")
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.wq = param(ninit((d, cfg.n_heads * hd), **kw))
+        self.wk = param(ninit((d, cfg.n_kv_heads * hd), **kw))
+        self.wv = param(ninit((d, cfg.n_kv_heads * hd), **kw))
+        self.wo = param(ninit((cfg.n_heads * hd, d), **kw))
+        if cfg.qk_norm:
+            self.q_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
+            self.k_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor | None,
+             mrope_pos: torch.Tensor | None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = lowp(x @ self.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        k = lowp(x @ self.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = lowp(x @ self.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        if cfg.pos == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        elif cfg.pos == "mrope":
+            q = apply_mrope(q, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, positions, mrope_pos)
+        out = attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk,
+                        softcap=cfg.attn_logit_softcap)
+        return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ self.wo
+
+    def decode(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+               length: torch.Tensor | None, mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        """One token per slot. x (B, 1, d); pos (B,) write positions; the
+        cache's k/v rows at pos % max_len are written in place."""
+        cfg = self.cfg
+        b = x.shape[0]
+        q, k, v = self._qkv(x, pos.reshape(b, 1), mrope_pos)
+        slot = pos % cache["k"].shape[1]
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], softcap=cfg.attn_logit_softcap,
+                               length=length)
+        return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ self.wo
+
+
+class Block(nn.Module):
+    """Layer ``j`` of a period: pre-norm mixer, then pre-norm MLP, each residual."""
+
+    def __init__(self, cfg: ArchConfig, j: int, *, generator: torch.Generator,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.ln_mix = param(torch.zeros((cfg.d_model,), dtype=dtype, device=device))
+        self.mixer_kind = cfg.mixer_kind(j)
+        if self.mixer_kind == "attn":
+            self.attn = Attention(cfg, **kw)
+        else:
+            self.mamba = Mamba(cfg, **kw)
+        self.mlp_kind = cfg.mlp_kind(j)
+        if self.mlp_kind != "none":
+            self.ln_mlp = param(torch.zeros((cfg.d_model,), dtype=dtype, device=device))
+        if self.mlp_kind == "moe":
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.mlp_act,
+                           capacity_factor=cfg.capacity_factor, shared_ff=cfg.shared_expert_ff,
+                           **kw)
+        elif self.mlp_kind == "dense":
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mlp_kind == "none":
+            return x
+        h = rms_norm(x, self.ln_mlp, self.cfg.norm_eps)
+        return x + (self.moe(h) if self.mlp_kind == "moe" else self.mlp(h))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        h = rms_norm(x, self.ln_mix, self.cfg.norm_eps)
+        if self.mixer_kind == "attn":
+            x = x + self.attn(h, positions, mrope_pos)
+        else:
+            x = x + self.mamba(h)
+        return self._mlp(x)
+
+    def decode(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+               length: torch.Tensor | None, mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        h = rms_norm(x, self.ln_mix, self.cfg.norm_eps)
+        if self.mixer_kind == "attn":
+            x = x + self.attn.decode(h, cache, pos, length, mrope_pos)
+        else:
+            x = x + self.mamba.decode(h, cache)
+        return self._mlp(x)
+
+
+class LM(nn.Module):
+    """The LM stack of one ``ArchConfig``, built on ``device`` in the
+    configuration's dtype with weights drawn from ``seed`` (the reference's
+    initializers and scales; torch's generator, so not the reference's
+    numbers: carry those across with ``repro_torch.interop``).
+
+    ``device`` defaults to the card and raises when there is none; pass
+    ``device="cpu"`` to run the plain versions of the kernels.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device: str = "cuda"):
+        super().__init__()
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: LM runs on the card unless given device='cpu'")
+        self.cfg = cfg
+        dtype = model_dtype(cfg)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        kw = dict(generator=gen, dtype=dtype, device=device)
+        vp, d = padded_vocab(cfg), cfg.d_model
+        self.final_norm = param(torch.zeros((d,), dtype=dtype, device=device))
+        if cfg.embed_inputs:
+            # 1/sqrt(d) keeps tied-head logits O(1) at init
+            self.embed = param(ninit((vp, d), scale=d ** -0.5, **kw))
+        if not cfg.tie_embeddings or not cfg.embed_inputs:
+            self.out_head = param(ninit((d, vp), **kw))
+        self.layers = nn.ModuleList(Block(cfg, i % cfg.layer_period, **kw)
+                                    for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+    def _embed_in(self, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        if not cfg.embed_inputs:  # audio: precomputed frame embeddings
+            x = batch["frames"].to(model_dtype(cfg))
+            return x + sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+        x = self.embed[batch["tokens"]]
+        if cfg.extra_image_tokens:  # vlm: patch embeds occupy a static prefix
+            n = cfg.extra_image_tokens
+            x = torch.cat([batch["pixel_embeds"].to(x.dtype), x[:, n:]], dim=1)
+        return x
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """Full-sequence forward -> final hidden states (B, S, d). ``batch``
+        holds "tokens" (B, S) (or "frames"), and optionally "positions",
+        "mrope_positions" and "pixel_embeds", as the reference's does."""
+        x = self._embed_in(batch)
+        b, s, _ = x.shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        mrope_pos = batch.get("mrope_positions")
+        for layer in self.layers:
+            x = layer(x, positions, mrope_pos)
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Hidden states (..., d) -> logits (..., padded vocab)."""
+        return h @ (self.embed.T if self.cfg.tie_embeddings else self.out_head)
+
+    def init_cache(self, batch_size: int, max_len: int, dtype=None) -> list[dict[str, Any]]:
+        """One dict per layer: {"k", "v"} (B, max_len, Hkv, head_dim) for
+        attention, {"conv" (B, k - 1, conv_dim), "state" (B, H, P, N) fp32}
+        for Mamba; zeros on the model's device."""
+        cfg = self.cfg
+        dtype = dtype or model_dtype(cfg)
+        kw = dict(device=self.device)
+        cache = []
+        for layer in self.layers:
+            if layer.mixer_kind == "attn":
+                shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+                cache.append({"k": torch.zeros(shape, dtype=dtype, **kw),
+                              "v": torch.zeros(shape, dtype=dtype, **kw)})
+            else:
+                cache.append({
+                    "conv": torch.zeros((batch_size, cfg.ssm_conv - 1,
+                                         cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype, **kw),
+                    "state": torch.zeros((batch_size, cfg.ssm_heads, cfg.ssm_headdim,
+                                          cfg.ssm_state), dtype=torch.float32, **kw)})
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: list[dict], token: torch.Tensor, pos, *, length=None,
+                    mrope_pos: torch.Tensor | None = None) -> torch.Tensor:
+        """One decode step: token (B,) int, pos a scalar or (B,) write
+        positions, ``length`` a scalar or (B,) count of valid cache rows.
+        Updates ``cache`` in place; returns logits (B, padded vocab)."""
+        if not self.cfg.has_decode:
+            raise ValueError(f"{self.cfg.name} is encoder-only")
+        b = token.shape[0]
+        pos = torch.as_tensor(pos, device=self.device).reshape(-1).expand(b)
+        if length is not None:
+            length = torch.as_tensor(length, device=self.device)
+        x = self.embed[token][:, None, :]  # (B, 1, d)
+        for layer, c in zip(self.layers, cache):
+            x = layer.decode(x, c, pos, length, mrope_pos)
+        return self.logits(rms_norm(x[:, 0], self.final_norm, self.cfg.norm_eps))

@@ -1,12 +1,14 @@
-"""K1-K7 on the card, held against their plain PyTorch versions on the same
-CUDA tensors. Needs an NVIDIA Hopper card and nvcc; elsewhere every test
-skips with the reason. Run on the card with
+"""K1-K9 on the card, held against their plain PyTorch versions on the same
+CUDA tensors, and the LM stack on the card. Needs an NVIDIA Hopper card and
+nvcc; elsewhere every test skips with the reason. Run on the card with
 
     python -m pytest -m gpu tests/test_torch_cuda.py
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions and the quadratic form
 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
-form); bf16 3e-2 * max|ref|; end-to-end predictions 1e-3 * max|pred|.
+form); bf16 3e-2 * max|ref|; end-to-end predictions 1e-3 * max|pred|; K8
+2e-5 (bf16 2e-2) and K9 2e-4 (bf16 3e-2) * max|ref| (tests/test_kernels.py);
+whole LM forwards 2e-4 and decode against forward 5e-3 * max|ref|.
 """
 import pytest
 import torch
@@ -84,7 +86,8 @@ def test_launch_counts_and_bit_repeatable_reductions(dev):
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(c, d)  # fixed-order sums, no atomics
     assert kernels.launch_counts() == {"gram": 1, "falkon_matvec": 2, "falkon_matvec_masked": 0,
-                                       "knm_t": 2, "knm_matvec": 1, "rls_score": 0, "quadform": 0}
+                                       "knm_t": 2, "knm_matvec": 1, "rls_score": 0, "quadform": 0,
+                                       "flash_attention": 0, "ssd": 0}
 
 
 def _mask(dev, n, k, case, seed=0):
@@ -311,3 +314,126 @@ def test_estimator_runs_on_the_card_by_default(dev):
     pred, std = est.predict(x, return_std=True)
     assert kernels.launch_counts()["rls_score"] > 0 and est.score(x, y) > 0.5
     assert std.device.type == "cuda" and bool(torch.all(torch.isfinite(std)))
+
+
+# -- K8 and K9: the LM kernels ---------------------------------------------------------------
+
+
+ATTN_CASES = [(1, 4, 4, 1, 8, True), (2, 8, 2, 300, 64, True), (1, 8, 1, 1000, 80, True),
+              (2, 4, 4, 300, 64, False), (1, 2, 2, 129, 128, False), (1, 4, 1, 77, 32, True),
+              (1, 2, 1, 200, 17, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, hq, hkv, s, d, causal):
+    from repro_torch.kernels import flash_attention_ops as fa
+
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    ref = fa.flash_attention_reference(q, k, v, causal=causal)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    _close(out.float(), ref.float(), tol * float(ref.float().abs().max()))
+
+
+SSD_CASES = [(2, 96, 4, 8, 16, 32), (2, 80, 2, 16, 8, 32), (1, 1000, 3, 64, 16, 64),
+             (2, 257, 4, 32, 16, 128), (1, 5, 2, 8, 4, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(dev, dtype, b, s, h, p, n, chunk):
+    from repro_torch.kernels import ssd_ops as so
+
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=dev))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=g, device=dev))
+    bm, cm = (0.5 * torch.randn((b, s, n), generator=g, device=dev) for _ in range(2))
+    y, st = so.ssd(x, dt, a, bm, cm, chunk=chunk)
+    yr, sr = so.ssd_reference(x, dt, a, bm, cm, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    _close(y.float(), yr.float(), tol * float(yr.float().abs().max()))
+    _close(st, sr, tol * float(sr.abs().max()))
+    y2, st2 = so.ssd(x, dt, a, bm, cm, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bit-repeatable
+
+
+def test_lm_kernels_count_launches_and_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels import flash_attention_ops as fa
+    from repro_torch.kernels import ssd_ops as so
+    from repro_torch.models import attention as attn
+
+    q = torch.randn((1, 4, 64, 32), device=dev)
+    x = torch.randn((1, 64, 2, 8), device=dev)
+    dt, a = torch.rand((1, 64, 2), device=dev), -torch.rand((2,), device=dev)
+    bm = torch.randn((1, 64, 4), device=dev)
+    kernels.reset_launch_counts()
+    first = fa.flash_attention(q, q[:, :2], q[:, :2])
+    assert torch.equal(first, fa.flash_attention(q, q[:, :2], q[:, :2]))
+    so.ssd(x, dt, a, bm, bm)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["ssd"] == 1
+    with pytest.raises(NotImplementedError, match="softcap"):
+        fa.flash_attention(q, q, q, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        attn.attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), causal=True,
+                       softcap=30.0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(torch.zeros((1, 1, 8, 256), device=dev),) * 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        so.ssd(torch.zeros((1, 8, 1, 64), device=dev), dt[:, :8, :1], a[:1],
+               torch.zeros((1, 8, 128), device=dev), torch.zeros((1, 8, 128), device=dev),
+               chunk=128)
+    assert kernels.launch_counts() == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_repeats_bit_for_bit(dev, dtype):
+    from repro_torch.models.moe import MoE
+
+    m = MoE(256, 512, 16, 2, "swiglu", capacity_factor=1.25,
+            generator=torch.Generator(device=dev).manual_seed(0), dtype=dtype, device=dev)
+    x = torch.randn((2, 500, 256), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(dtype)
+    out = m(x)
+    for _ in range(2):
+        assert torch.equal(out, m(x))
+    if dtype == torch.float32:  # the card and the CPU route and combine alike
+        cpu = m.to("cpu")(x.cpu()).to(dev)
+        _close(out, cpu, 1e-4 * float(cpu.abs().max()))
+
+
+def test_smoke_jamba_on_the_card_matches_the_cpu_and_runs_the_kernels(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import LM
+    from repro_torch.serving import ServeEngine, prefill, prefill_logits
+
+    cfg = dataclasses.replace(smoke(get_config("jamba-v0.1-52b")), dtype="float32",
+                              capacity_factor=16.0)
+    lm_gpu, lm_cpu = LM(cfg, seed=2, device="cuda"), LM(cfg, seed=2, device="cpu")
+    lm_cpu.load_state_dict({k: v.cpu() for k, v in lm_gpu.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), device=dev)
+    kernels.reset_launch_counts()
+    h = lm_gpu({"tokens": tokens})
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["ssd"] == 7
+    ref = lm_cpu({"tokens": tokens.cpu()}).to(dev)
+    _close(h, ref, 2e-4 * float(ref.abs().max()))
+    # decode on the card reproduces its forward and launches no LM kernel
+    want = prefill_logits(lm_gpu, {"tokens": tokens[:, :24]})
+    kernels.reset_launch_counts()
+    got, _ = prefill(lm_gpu, tokens[:, :24], 24)
+    assert kernels.launch_counts()["flash_attention"] == 0
+    _close(got, want.float(), 5e-3 * float(want.abs().max()))
+    eng = ServeEngine(lm_gpu, max_len=32, batch_slots=2)
+    eng.add_request(0, [3, 4, 5])
+    for _ in range(4):
+        eng.step()
+    assert len(eng.finish(0)) == 5

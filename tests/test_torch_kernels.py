@@ -188,9 +188,13 @@ def test_cpu_path_counts_no_launches():
     w = torch.eye(z.shape[0])
     kernels.rls_score_ops.rls_score(x, z, w, torch.ones(z.shape[0], dtype=torch.bool), 1.0)
     kernels.quadform_ops.quadform(go.gram(x, z), w)
+    q = torch.randn(1, 4, 9, 8)
+    kernels.flash_attention_ops.flash_attention(q, q[:, :2], q[:, :2])
+    kernels.ssd_ops.ssd(torch.randn(1, 9, 2, 4), torch.rand(1, 9, 2), -torch.rand(2),
+                        torch.randn(1, 9, 3), torch.randn(1, 9, 3), chunk=4)
     assert kernels.launch_counts() == {"gram": 0, "falkon_matvec": 0, "falkon_matvec_masked": 0,
                                        "knm_t": 0, "knm_matvec": 0, "rls_score": 0,
-                                       "quadform": 0}
+                                       "quadform": 0, "flash_attention": 0, "ssd": 0}
 
 
 def test_wrappers_refuse_mixed_or_unsupported_devices():
@@ -262,7 +266,7 @@ def test_every_launcher_is_defined_against_its_declaration():
     names = _launchers()
     assert names == ["launch_gram", "launch_knm_matvec", "launch_knm_matvec_masked",
                      "launch_knm_t_partial", "launch_reduce_partials", "launch_rls_score",
-                     "launch_quadform_partial"]
+                     "launch_quadform_partial", "launch_flash_attention", "launch_ssd"]
     pkg = build.CSRC.parent
     cu = {s: (pkg / s).read_text() for s in build.SOURCES if s.endswith(".cu")}
     for name in names:
@@ -284,7 +288,7 @@ def test_binding_checks_every_launch():
         after = text[stmt_end + 1:].lstrip()
         assert after.startswith("C10_CUDA_KERNEL_LAUNCH_CHECK();"), text[end - 40:stmt_end + 60]
     for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec", "falkon_matvec_masked",
-                 "rls_score", "quadform"):
+                 "rls_score", "quadform", "flash_attention", "ssd"):
         assert f'm.def("{name}", &{name}' in text
     # K7's binding checks its mask and runs three launches, each checked
     body = text[text.index("void falkon_matvec_masked("):text.index("// K5:")]
