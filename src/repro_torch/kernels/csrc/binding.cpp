@@ -166,7 +166,7 @@ void rls_score(const at::Tensor& x, const at::Tensor& z, const at::Tensor& w,
 }
 
 // K6: out (n,) = rowsum((g w) * g) for g (n, m), w (m, m); partial is
-// (ceil(m / 64), n) scratch, one row per 64-column tile of w.
+// (ceil(m / 128), n) scratch, one row per 128-column tile of w.
 void quadform(const at::Tensor& g, const at::Tensor& w, at::Tensor& partial, at::Tensor& out,
               bool bf16) {
   check(g, "g");

@@ -42,14 +42,14 @@ void launch_rls_score(const float* x, const float* z, const float* w, const floa
                       const float* kdiag, float* out, int n, int m, int d, int fam, float s,
                       float lamn, bool bf16, cudaStream_t st);
 
-// K6, first half: partial (ceil(m / 64), n) holds, per 64-column tile of
+// K6, first half: partial (ceil(m / 128), n) holds, per 128-column tile of
 // w (m, m), each row's rowsum((g w)[:, tile] * g[:, tile]) for g (n, m).
 void launch_quadform_partial(const float* g, const float* w, float* partial, int n, int m,
                              bool bf16, cudaStream_t st);
 
 // K8: out (b, hq, s, d) = softmax(q k^T * scale, masked causally if `causal`) v
 // for q (b, hq, s, d) and k, v (b, hkv, s, d), kv head h / (hq / hkv); q, k, v
-// and out all fp32, or all bf16 if `bf16`; d <= 128.
+// and out all fp32 (FMA units), or all bf16 if `bf16` (tensor cores); d <= 128.
 void launch_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                             int hq, int hkv, int s, int d, float scale, bool causal, bool bf16,
                             cudaStream_t st);

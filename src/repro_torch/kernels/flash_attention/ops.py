@@ -4,8 +4,10 @@ Takes the reference's layout, q (B, Hq, S, D) and k/v (B, Hkv, S, D) with
 Hq % Hkv == 0, fp32 or bf16 (one dtype for all three), and returns (B, Hq, S,
 D) in q's dtype; the scale is 1/sqrt(D). Any S and any D up to 128: nothing
 is padded, the kernel masks the ragged edges itself. A CUDA tensor goes to
-the kernel of ``flash_attention.cu`` (through the extension ``build.py``
-loads) or the call raises; a CPU tensor goes to the plain version in
+a kernel of ``flash_attention.cu`` (through the extension ``build.py``
+loads) or the call raises: bf16 to the tensor-core kernel (``mma.sync``,
+fp32 accumulation and softmax, P rounded to bf16 before P V), fp32 to the
+IEEE fp32 kernel on the FMA units. A CPU tensor goes to the plain version in
 ``ref.py``. ``flash_attention.launches`` counts the kernel launches.
 """
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """Public wrapper of K6, the fused quadratic form rowsum((G W) * G).
 
-Any n and m: nothing is padded, the kernel masks the ragged edges itself. A
-CUDA tensor goes to the kernels of ``quadform.cu`` (through the extension
-``build.py`` loads) or the call raises; a CPU tensor goes to the plain
-version in ``ref.py``. ``quadform.launches`` counts the kernel launches.
+Any n and m: nothing is padded, the kernel zero-fills the ragged edges of
+its tiles itself. A CUDA tensor goes to the kernels of ``quadform.cu``
+(through the extension ``build.py`` loads) or the call raises: the
+register-tiled fp32 kernel writes one partial row sum per ``TILE``-column
+tile of W into a (ceil(m / TILE), n) scratch, and ``reduce_partials`` adds
+them in order. A CPU tensor goes to the plain version in ``ref.py``.
+``quadform.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from .. import build
 from ..common import is_cpu, require_cuda
 from .ref import quadform_ref
 
-TILE = 64  # rows of G and columns of W per block (quadform.cu)
+TILE = 128  # rows of G and columns of W per block (quadform.cu's QT)
 
 
 def _check(g: torch.Tensor, w: torch.Tensor) -> None:

@@ -207,13 +207,29 @@ def test_rls_score_kernel_matches_plain(dev, kind, bf16, shape):
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("kind", FAMILIES)
-@pytest.mark.parametrize("shape", [(7001, 1000), (300, 4097), (1, 1), (65, 63)])
+@pytest.mark.parametrize("shape", [(7001, 1000), (300, 4097), (1, 1), (65, 63), (129, 128),
+                                   (128, 129), (257, 4099), (1000, 2560)])
 def test_quadform_kernel_matches_plain(dev, kind, bf16, shape):
     n, m = shape
     _, x, z, w, mask, _, _ = _score_inputs(dev, n, m, 18, kind, seed=6)
     g = go.gram(x, z, 2.5, kind=kind) * mask.float()[None, :]
     ref = qo.quadform_reference(g, w, bf16=bf16)
     _close(qo.quadform(g, w, bf16=bf16), ref, (3e-2 if bf16 else 1e-4) * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_quadform_kernel_takes_a_misaligned_g(dev, bf16):
+    # G starting 4 bytes past a 16-byte boundary (and m % 4 == 0) takes the
+    # kernel's 4-byte staging path; the 16-byte one gives the same result.
+    _, x, z, w, mask, _, _ = _score_inputs(dev, 1000, 256, 18, "gaussian", seed=8)
+    g = go.gram(x, z, 2.5) * mask.float()[None, :]
+    gm = torch.empty(g.numel() + 1, device=dev)[1:].view(g.shape)
+    gm.copy_(g)
+    assert gm.data_ptr() % 16 != 0 and gm.is_contiguous()
+    ref = qo.quadform_reference(g, w, bf16=bf16)
+    out = qo.quadform(gm, w, bf16=bf16)
+    _close(out, ref, (3e-2 if bf16 else 1e-4) * float(ref.abs().max()))
+    torch.testing.assert_close(out, qo.quadform(g, w, bf16=bf16), rtol=0, atol=0)
 
 
 def test_score_kernels_are_bit_repeatable_and_counted(dev):
@@ -319,9 +335,13 @@ def test_estimator_runs_on_the_card_by_default(dev):
 # -- K8 and K9: the LM kernels ---------------------------------------------------------------
 
 
+#: the last 48 pad the tensor-core kernel's tiles: D in {17, 32, 80, 128}, S of
+#: one row, one ragged tile and many; GQA groups 1, 4, 8; bidirectional.
 ATTN_CASES = [(1, 4, 4, 1, 8, True), (2, 8, 2, 300, 64, True), (1, 8, 1, 1000, 80, True),
               (2, 4, 4, 300, 64, False), (1, 2, 2, 129, 128, False), (1, 4, 1, 77, 32, True),
-              (1, 2, 1, 200, 17, True)]
+              (1, 2, 1, 200, 17, True)] + [
+    (1, hq, hkv, s, d, causal) for d in (17, 32, 80, 128) for s in (1, 129, 2053)
+    for hq, hkv, causal in ((8, 8, True), (8, 2, True), (8, 1, True), (8, 2, False))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -337,6 +357,25 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, hq, hkv, s, d, caus
     assert out.dtype == dtype
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     _close(out.float(), ref.float(), tol * float(ref.float().abs().max()))
+    # and per query row: a causal row over i keys has outputs about sqrt(e / i),
+    # far below row 0's, which sets max|ref|
+    row_err = (out.float() - ref.float()).abs().amax(-1) / ref.float().abs().amax(-1)
+    assert float(row_err.max()) <= tol, float(row_err.max())
+
+
+def test_flash_attention_repeats_and_fp32_is_untouched_by_bf16_calls(dev):
+    # No float atomics: the bf16 output repeats bit for bit. The fp32 kernel
+    # shares no state with the bf16 one: its output is the same bits before
+    # and after a bf16 call.
+    from repro_torch.kernels import flash_attention_ops as fa
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((2, h, 1000, 128), generator=g, device=dev) for h in (8, 2, 2))
+    before = fa.flash_attention(q, k, v)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    first = fa.flash_attention(qb, kb, vb)
+    assert torch.equal(first, fa.flash_attention(qb, kb, vb))
+    assert torch.equal(before, fa.flash_attention(q, k, v))
 
 
 SSD_CASES = [(2, 96, 4, 8, 16, 32), (2, 80, 2, 16, 8, 32), (1, 1000, 3, 64, 16, 64),

@@ -303,3 +303,47 @@ def test_masked_stage_one_is_the_templated_k4_kernel():
     assert "template <bool MASKED>" in text
     assert "knm_matvec_kernel<false><<<" in text and "knm_matvec_kernel<true><<<" in text
     assert "MASKED ? acc[q] * mask[o] : acc[q]" in text
+
+
+def _kernel_body(text, name):
+    """The text of the __global__ function `name`, from its name to its end."""
+    start = text.index(f"\n{name}(")
+    body = text.index("{", text.index(")", start))
+    depth, i = 0, body
+    while True:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+        i += 1
+
+
+def test_flash_attention_runs_bf16_on_the_tensor_cores_and_fp32_on_the_fma_units():
+    # K8's bf16 tensor-core kernel (mma.sync, fp32 accumulation); fp32 stays
+    # the IEEE fp32 FMA kernel (no TF32).
+    text = (build.CSRC.parent / "flash_attention" / "flash_attention.cu").read_text()
+    mma = _kernel_body(text, "flash_attention_mma_kernel")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert "mma_bf16(" in mma and "ldsm_x4_trans(" in mma and "fmaf(" not in mma
+    fma = _kernel_body(text, "flash_attention_kernel")
+    assert "fmaf(" in fma and "mma" not in fma
+    assert ".tf32" not in text  # no TF32 instruction
+    launcher = text[text.index("void repro::launch_flash_attention("):]
+    bf16_branch, fp32_branch = launcher.split("} else {")
+    assert "dispatch_mma(static_cast<const __nv_bfloat16*>" in bf16_branch
+    assert "dispatch(static_cast<const float*>" in fp32_branch
+
+
+def test_quadform_tile_matches_the_wrapper_and_bf16_is_a_template_parameter():
+    # The partial buffer is (ceil(m / TILE), n): the wrapper's TILE must be the
+    # kernel's tile, or the kernel writes past it. bf16 is compiled in, so the
+    # fp32 kernel's FMA loop carries no runtime branch.
+    from repro_torch.kernels import quadform_ops as qo
+
+    text = (build.CSRC.parent / "quadform" / "quadform.cu").read_text()
+    assert int(re.search(r"constexpr int QT = (\d+);", text).group(1)) == qo.TILE
+    assert "template <bool BF16, bool VEC>" in text
+    kernel = _kernel_body(text, "quadform_partial_kernel")
+    signature = kernel[:kernel.index("{")]
+    assert "bf16" not in signature.lower() and "if (BF16)" in kernel
+    assert "if (bf16)" not in kernel and "fmaf(a[i], b[j], acc[i][j])" in kernel
+    assert "launch<true, true>" in text and "launch<false, true>" in text

@@ -13,6 +13,7 @@ softplus without torch's identity cut-off above 20 (jax.nn.softplus's form),
 so no tolerance covers a difference there.
 """
 import dataclasses
+import math
 import pathlib
 import re
 import sys
@@ -105,6 +106,54 @@ def test_plain_flash_attention_bf16_matches_reference_kernel():
     assert out.dtype == torch.bfloat16
     jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
     _close(out, jax_fa.flash_attention(jq, jk, jv, interpret=True), 2e-2)
+
+
+def _attention_with_k8_mma_rounding(q, k, v, causal, bk=64):
+    """The bf16 tensor-core K8's arithmetic, tile by tile on the CPU: bf16 q,
+    k, v; fp32 scores scaled by 1/sqrt(D), the reference's -1e30 mask; an
+    online softmax over 64-key tiles whose row sum l adds the unrounded fp32
+    p, while P is rounded to bf16 before P V; fp32 accumulation; O / l
+    rounded to bf16."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    m = torch.full((b, hq, s), -1e30)
+    l = torch.zeros((b, hq, s))
+    o = torch.zeros((b, hq, s, d))
+    qpos = torch.arange(s)
+    for k0 in range(0, s, bk):
+        sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bk]) * (1.0 / math.sqrt(d))
+        if causal:
+            kpos = torch.arange(k0, min(k0 + bk, s))
+            sc = torch.where(qpos[:, None] >= kpos[None, :], sc, sc.new_full((), -1e30))
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = corr * l + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + bk])
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,causal", ATTN_SHAPES + [(4, 2, 200, 17, True)])
+def test_k8_tensor_core_rounding_stays_within_the_bf16_tolerance(hq, hkv, s, d, causal):
+    # Rounding P to bf16 before P V is the one step where the bf16 kernel
+    # departs from the reference, which keeps p in fp32; the bf16 tolerance
+    # (tests/test_kernels.py) still holds with it.
+    r = _rng(s + d + 1)
+    q, k, v = (r.standard_normal((2, h, s, d)).astype(np.float32) for h in (hq, hkv, hkv))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = _attention_with_k8_mma_rounding(tq, tk, tv, causal)
+    assert out.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    ref = jax_fa.flash_attention(jq, jk, jv, causal=causal, bq=128, bk=128, interpret=True)
+    _close(out, ref, 2e-2)
+    # and per query row, as chip_smoke.py and the card's test hold the kernel
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    row_err = (out.float() - ref).abs().amax(-1) / ref.abs().amax(-1)
+    assert float(row_err.max()) <= 2e-2, float(row_err.max())
 
 
 def _ssd_inputs(b, s, h, p, n, seed):
@@ -416,6 +465,7 @@ def test_chip_smoke_lm_phases_rehearse_on_the_cpu():
                            serve_prompt=5, steps=6, join_at=2)
     assert srv["output_lengths"] == [7, 7, 7, 5] and srv["logits_finite"]
     assert srv["kernels"]["flash_attention"]["shape"] == [2, 4, 4, 48, 32]
+    assert srv["kernels"]["flash_attention"]["design"] == "mma.sync bf16"
     assert srv["kernels"]["ssd"]["shape"] == [2, 48, 8, 32, 16]
     assert srv["kernels"]["ssd"]["library_ms"] is None
     assert (srv["kernels"]["ssd"]["chunk"], srv["kernels"]["ssd_chunk128"]["chunk"]) == (64, 128)
