@@ -16,9 +16,13 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 K7 falkon_matvec_masked there with a vector and an (n,) mask,
                 k = 3 and k = 40 with 0/1 panels, fractional weights and an
                 (n,) mask broadcast to the panel; an all-zeros mask must give
-                exactly 0 and an all-ones mask K2's result bit for bit; K5
-                rls_score at R = 70 001, M in {1, 1000, 1024}; K6 quadform at
-                n = 70 001, m in {1 000, 4 097}.
+                exactly 0 and an all-ones mask K2's result bit for bit; K2
+                with a vector also at M = 10 000 (the cluster route on an
+                8-block cluster) and M = 12 289 (just above its cap at
+                d = 18: the two-stage route), K2 and K7 with k = 5 panels
+                there (the two-stage route); K5 rls_score at R = 70 001,
+                M in {1, 1000, 1024}; K6 quadform at n = 70 001,
+                m in {1 000, 4 097}.
   4. uniform    FalkonRegressor + UniformSampler at the scale of the paper's
                 SUSY experiment (d = 18, n_train = 10^6 cut from 5 * 10^6 for
                 the time limit, n_test = 10^5, M = 10^4, sigma = 4, lam = 1e-6,
@@ -49,7 +53,11 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 predictive-variance shape (10^5 x 10^4) and at the largest
                 ladder level above 1 024 centers, if there is one, and K7 at
                 the sweep's shape (10^6 rows, the BLESS M, phase 7's 5-fold
-                mask).
+                mask); K2's and K7's lines name the route matvec_plan chose.
+                Logged beside them, not gated: K5 against K1 + K6 at
+                M = 1 024 (the MAX_FUSED_M crossover) on K5's rows, and K2 on
+                the two-stage route at M = 16 384 (above the cluster route's
+                cap).
   7. cv         exact k-fold CV through the front door on the same data and
                 phase 5's BLESS center set: KFoldSweep(folds=5, lams=(1e-5,
                 1e-6, 1e-7), iters=20), counts reset just before the sweep and
@@ -307,7 +315,7 @@ def score_inputs(device, r: int, m: int, d: int, kind: str, sigma: float, seed: 
 
 def kernel_parity(device, *, n: int = 70_001, m: int = 1_000, d: int = 18, k: int = 3,
                   sigma: float = 4.0, seed: int = 0, score_ms=(1, 1_000, 1_024),
-                  quad_ms=(1_000, 4_097)) -> dict:
+                  quad_ms=(1_000, 4_097), route_ms=(10_000, 12_289)) -> dict:
     """Every kernel against its plain version on ``device``; returns
     {kernel: max abs error over the fp32 cases}; raises past a tolerance."""
     from repro_torch.kernels import falkon_matvec_ops as fo
@@ -320,7 +328,7 @@ def kernel_parity(device, *, n: int = 70_001, m: int = 1_000, d: int = 18, k: in
     z = torch.randn((m, d), generator=g, device=device)
     vp = torch.randn((m, k), generator=g, device=device)
     yp = torch.randn((n, k), generator=g, device=device)
-    # K7's operands: k = 40 spans two 32-column chunks of the kernel
+    # K7's operands: k = 40 spans several column chunks on either route
     v40 = torch.randn((m, 40), generator=g, device=device)
     m_vec = (torch.rand((n,), generator=g, device=device) > 0.3).float()
     m3 = (torch.rand((n, k), generator=g, device=device) > 0.3).float()
@@ -375,6 +383,30 @@ def kernel_parity(device, *, n: int = 70_001, m: int = 1_000, d: int = 18, k: in
                 if nonzero:
                     bad.append(f"{tag}: an all-zeros mask gave {nonzero} nonzero outputs")
             sync(device)
+
+    # K2 and K7 on both routes beyond the shapes above (which take one-block
+    # clusters): a vector at M = 10 000 splits over an 8-block cluster; at
+    # M = 12 289, just above the cluster route's cap at d = 18, and with k = 5
+    # panels at both M, the calls take the two-stage route.
+    for mm in route_ms:
+        z2 = torch.randn((mm, d), generator=g, device=device)
+        v2 = torch.randn((mm, 5), generator=g, device=device)
+        mask2 = (torch.rand((n, 5), generator=g, device=device) > 0.3).float()
+        for kind in FAMILIES:
+            for bf16 in ([False, True] if kind == "gaussian" else [False]):
+                kw = dict(kind=kind, bf16=bf16)
+                for shape, v, mask in (("vec", v2[:, 0], None), ("k=5", v2, mask2)):
+                    plan = fo.matvec_plan(n, mm, d, 1 if v.ndim == 1 else v.shape[1])
+                    tag = f"{n}x{mm}/{shape}/{plan.route}/cluster={plan.cluster}"
+                    check("falkon_matvec", kind, bf16, tag,
+                          fo.falkon_matvec(x, z2, v, sigma, **kw),
+                          fo.falkon_matvec_reference(x, z2, v, sigma, **kw))
+                    if mask is not None:
+                        check("falkon_matvec_masked", kind, bf16, tag,
+                              fo.falkon_matvec(x, z2, v, sigma, mask=mask, **kw),
+                              fo.falkon_matvec_masked_reference(x, z2, v, mask, sigma, **kw))
+                sync(device)
+        del z2, v2, mask2
 
     # K5 and K6 on the operands the backend forms: a masked center buffer and
     # the explicit inverse of its regularized K_JJ.
@@ -954,7 +986,10 @@ def main_path_parity(calls) -> dict:
 
 
 def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
-    """CUDA-event times of each kernel, its plain version and the yardstick."""
+    """CUDA-event times of each kernel, its plain version and the yardstick;
+    K2's and K7's rows name the route ``matvec_plan`` gave them."""
+    from repro_torch.kernels import falkon_matvec_ops as fo
+
     times = {}
     for name, n, m, d, k, kern, plain, library in calls:
         b_ms, b_by = bound(name.split("@")[0], n, m, d, k)
@@ -963,8 +998,52 @@ def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
                        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, m, d, k]}
         if name.startswith("quadform"):
             times[name]["design"] = "register-tiled fp32"
+        elif name == "rls_score":
+            times[name]["design"] = ("on-chip Gram slab for two W column tiles, G W in 8x4 "
+                                     "register tiles, depth split over two warp groups")
+        elif name.startswith("falkon_matvec"):
+            plan = fo.matvec_plan(n, m, d, k)
+            times[name]["route"] = plan.route
+            times[name]["design"] = (
+                f"one Gram build per call, {plan.cluster}-block cluster, T through DSMEM"
+                if plan.route == "cluster" else "two Gram builds per call (K4 then K3)")
         log(f"times {name}: {json.dumps(times[name])}")
     return times
+
+
+def crossovers(device, times: dict, *, sigma: float = 4.0, seed: int = 0, d: int = 18,
+               above_cap: tuple[int, int] = (1_000_000, 16_384)) -> dict:
+    """Two times beside phase 6's, logged and not gated: K5 against K1 + K6 at
+    M = MAX_FUSED_M on K5's main-path rows (where CudaBackend switches from
+    the one to the other), and K2 on the two-stage route at an M above the
+    cluster route's cap."""
+    from repro_torch.kernels import falkon_matvec_ops as fo
+    from repro_torch.kernels import gram_ops as go
+    from repro_torch.kernels import quadform_ops as qo
+    from repro_torch.kernels import rls_score_ops as ro
+
+    r = times["rls_score"]["shape"][0]
+    mm = ro.MAX_FUSED_M
+    x, z, w, mask, lamn = score_inputs(device, r, mm, d, "gaussian", sigma, seed + 1)
+    out = {"k5_vs_k1_k6": {"shape": [r, mm, d],
+                           "k5_ms": _cuda_ms(lambda: ro.rls_score(x, z, w, mask, lamn, sigma), 5),
+                           "k1_k6_ms": _cuda_ms(lambda: qo.quadform(
+                               go.gram(x, z, sigma) * mask[None, :], w), 5)}}
+    del x, z, w, mask
+    n, m = above_cap
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device)
+    z = torch.randn((m, d), generator=g, device=device)
+    v = torch.randn((m,), generator=g, device=device)
+    plan = fo.matvec_plan(n, m, d, 1)
+    b_ms, b_by = bound("falkon_matvec", n, m, d, 1)
+    out["falkon_matvec_above_cap"] = {"shape": [n, m, d, 1], "route": plan.route,
+                                      "ms": _cuda_ms(lambda: fo.falkon_matvec(x, z, v, sigma), 2),
+                                      "bound_ms": b_ms, "bound_by": b_by}
+    del x, z, v
+    for key, row in out.items():
+        log(f"times {key}: {json.dumps(row)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1553,6 +1632,7 @@ def main(argv=None) -> int:
         errs = main_path_parity(calls)
         times = kernel_times(calls)
         del calls
+        crossovers("cuda", times, seed=args.seed)
         cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
         clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
         del tensors, bless_t  # the LM phases need the card's memory

@@ -79,6 +79,17 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def regroups(cfg: ArchConfig, hp: int) -> bool:
+    """Whether padding ``cfg``'s q heads to ``hp`` sends some real q head to
+    another kv head than the unpadded grouping does (kv heads are padded with
+    the q heads when ``n_kv_heads == n_heads``, so such configurations keep
+    their grouping)."""
+    if cfg.n_kv_heads == cfg.n_heads:
+        return False
+    padded, real = hp // cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    return any(h // padded != h // real for h in range(cfg.n_heads))
+
+
 def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
     """The port's ``LM(cfg).state_dict()`` (CPU tensors, dtypes kept) from the
     reference's ``init_params(cfg, key)`` pytree given as numpy arrays.
@@ -88,15 +99,18 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tenso
     gets slice g. The reference pads q heads to a multiple of its 16-way
     model axis (and, when ``n_kv_heads == n_heads``, the kv heads with them)
     and masks the padded heads before ``wo``; their ``wq`` columns, ``wk`` /
-    ``wv`` columns and ``wo`` rows are dropped, which is exact. Where q heads
-    are padded but kv heads are not (grouped-query configurations whose
-    ``n_heads`` is not a multiple of 16), the reference's padded grouping
-    sends real q heads to other kv heads than ``h // (n_heads / n_kv_heads)``
-    and the model is not the unpadded one: such configurations raise.
+    ``wv`` columns and ``wo`` rows are dropped, which is exact whenever every
+    real q head reads the same kv head in both models. The reference sends q
+    head h to kv head ``h // (hp // n_kv_heads)`` (``hp`` the padded count, or
+    the kv heads padded with the q heads when ``n_kv_heads == n_heads``); the
+    port sends it to ``h // (n_heads // n_kv_heads)``. A configuration in which
+    some real head ``h < n_heads`` goes to another kv head under the padded
+    grouping (granite-moe's 24 over 8, llama4-scout's 40 over 8, qwen2-vl's 12
+    over 2) is not the unpadded model the port runs, and raises; multi-query
+    configurations (one kv head) and unpadded ones never do.
     """
     hp = cfg.padded_heads(REFERENCE_TP)
-    mha = cfg.n_kv_heads == cfg.n_heads
-    if hp != cfg.n_heads and not mha:
+    if regroups(cfg, hp):
         raise ValueError(
             f"{cfg.name}: the reference pads {cfg.n_heads} q heads to {hp} over "
             f"{cfg.n_kv_heads} kv heads, which regroups the real heads; its model is not "

@@ -6,6 +6,8 @@
 // raises in the calling Python frame.
 #include <torch/extension.h>
 
+#include <algorithm>
+
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -92,8 +94,66 @@ void knm_t(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y, at::Te
                  at::cuda::getCurrentCUDAStream());
 }
 
-// K2: out (m, k) = k(x, z)^T (k(x, z) v (m, k)); t (n, k) holds the first
-// stage, partial as in knm_t.
+// K2 (mask None) or K7 on the cluster route: out (m, k) = k(x, z)^T diag(mask)
+// k(x, z) v (m, k), each Gram value built once; xnorm (n,) scratch for the
+// rows' squared norms, partial (n_chunks, m, k) scratch with n_chunks *
+// chunk_rows >= n, and (cluster, slice, kc) the plan of
+// falkon_matvec/ops.py:matvec_plan. n may be 0 (the chunks then sum to 0).
+void falkon_matvec_fused(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
+                         const c10::optional<at::Tensor>& mask, at::Tensor& xnorm,
+                         at::Tensor& partial, at::Tensor& out, int64_t cluster, int64_t slice,
+                         int64_t kc, int64_t chunk_rows, int64_t fam, double s, bool bf16) {
+  check(x, "x");
+  check(z, "z");
+  check(v, "v");
+  check(xnorm, "xnorm");
+  check(partial, "partial");
+  check(out, "out");
+  const int64_t n = x.size(0), m = z.size(0), d = x.size(1), k = v.size(1);
+  if (mask.has_value()) {
+    check(*mask, "mask");
+    TORCH_CHECK(mask->dim() == 2 && mask->size(0) == n && mask->size(1) == k,
+                "mask must be (n, k) = (", n, ", ", k, "), got ", mask->sizes());
+  }
+  TORCH_CHECK(xnorm.numel() == n, "xnorm must hold n = ", n, " values");
+  TORCH_CHECK(d >= 1 && d <= 64, "the cluster route takes 1 to 64 features, got ", d);
+  TORCH_CHECK(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8,
+              "cluster must be 1, 2, 4 or 8, got ", cluster);
+  TORCH_CHECK(kc == 1 || kc == 2 || kc == 4 || kc == 5 || kc == 8,
+              "kc must be 1, 2, 4, 5 or 8, got ", kc);
+  TORCH_CHECK(slice > 0 && slice % 256 == 0 && (cluster - 1) * slice < m && m <= cluster * slice,
+              "slice ", slice, " does not split ", m, " centers over ", cluster, " blocks");
+  TORCH_CHECK(chunk_rows > 0 && chunk_rows % 16 == 0 && partial.dim() == 3 &&
+                  partial.size(0) * chunk_rows >= n && partial.size(1) == m &&
+                  partial.size(2) == k && out.size(0) == m && out.size(1) == k,
+              "partial must be (n_chunks, m, k) with n_chunks * chunk_rows >= n");
+  TORCH_CHECK(repro::falkon_fused_smem_floats(static_cast<int>(slice), static_cast<int>(d),
+                                              static_cast<int>(kc)) * 4 <= 232448,
+              "a slice of ", slice, " centers at d = ", d, " needs more than 227 KB of "
+              "shared memory");
+  if (m == 0 || k == 0) return;
+  const c10::cuda::CUDAGuard guard(x.device());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (n > 0) {
+    repro::launch_row_norms(x.data_ptr<float>(), xnorm.data_ptr<float>(), static_cast<int>(n),
+                            static_cast<int>(d), st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+  repro::launch_falkon_matvec_fused(
+      x.data_ptr<float>(), z.data_ptr<float>(), v.data_ptr<float>(),
+      mask.has_value() ? mask->data_ptr<float>() : nullptr, xnorm.data_ptr<float>(),
+      partial.data_ptr<float>(), static_cast<int>(n), static_cast<int>(m), static_cast<int>(d),
+      static_cast<int>(k), static_cast<int>(cluster), static_cast<int>(slice),
+      static_cast<int>(kc), static_cast<int>(chunk_rows), dim(partial, 0), static_cast<int>(fam),
+      static_cast<float>(s), bf16, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), out.data_ptr<float>(), m * k,
+                                        dim(partial, 0), st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K2 on the two-stage route: out (m, k) = k(x, z)^T (k(x, z) v (m, k)); t (n, k)
+// holds the first stage, partial as in knm_t.
 void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v, at::Tensor& t,
                    at::Tensor& partial, at::Tensor& out, int64_t chunk_rows, int64_t fam,
                    double s, bool bf16) {
@@ -115,8 +175,9 @@ void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v
   knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
 }
 
-// K7: out (m, k) column j = k(x, z)^T diag(mask[:, j]) k(x, z) v[:, j]; mask (n, k);
-// t (n, k) holds the masked first stage, partial as in knm_t.
+// K7 on the two-stage route: out (m, k) column j = k(x, z)^T diag(mask[:, j])
+// k(x, z) v[:, j]; mask (n, k); t (n, k) holds the masked first stage, partial
+// as in knm_t.
 void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
                           const at::Tensor& mask, at::Tensor& t, at::Tensor& partial,
                           at::Tensor& out, int64_t chunk_rows, int64_t fam, double s,
@@ -144,24 +205,34 @@ void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Te
   knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
 }
 
-// K5: out (n,) = (kdiag - g^T w g) / lamn per row, g = k(x, z) * zmask.
+// K5: out (n,) = (k(x_i, x_i) - g^T w g) / lamn per row, g = k(x, z) * zmask;
+// partial is (max(1, ceil(m / 128)), n) scratch, one row per 128-column tile
+// of w.
 void rls_score(const at::Tensor& x, const at::Tensor& z, const at::Tensor& w,
-               const at::Tensor& zmask, const at::Tensor& kdiag, at::Tensor& out, int64_t fam,
+               const at::Tensor& zmask, at::Tensor& partial, at::Tensor& out, int64_t fam,
                double s, double lamn, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(w, "w");
   check(zmask, "zmask");
-  check(kdiag, "kdiag");
+  check(partial, "partial");
   check(out, "out");
   TORCH_CHECK(z.size(0) <= 1024, "rls_score takes at most 1024 centers");
+  const int64_t tiles = std::max<int64_t>(1, (z.size(0) + 127) / 128);
+  TORCH_CHECK(partial.dim() == 2 && partial.size(0) == tiles && partial.size(1) == x.size(0),
+              "partial must be (max(1, ceil(m / 128)), n)");
   if (x.size(0) == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
-  repro::launch_rls_score(x.data_ptr<float>(), z.data_ptr<float>(), w.data_ptr<float>(),
-                          zmask.data_ptr<float>(), kdiag.data_ptr<float>(),
-                          out.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1),
-                          static_cast<int>(fam), static_cast<float>(s),
-                          static_cast<float>(lamn), bf16, at::cuda::getCurrentCUDAStream());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  repro::launch_rls_score_partial(x.data_ptr<float>(), z.data_ptr<float>(), w.data_ptr<float>(),
+                                  zmask.data_ptr<float>(), partial.data_ptr<float>(), dim(x, 0),
+                                  dim(z, 0), dim(x, 1), static_cast<int>(fam),
+                                  static_cast<float>(s), bf16, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_rls_score_finish(partial.data_ptr<float>(), x.data_ptr<float>(),
+                                 out.data_ptr<float>(), dim(x, 0), dim(x, 1), dim(partial, 0),
+                                 static_cast<int>(fam), static_cast<float>(s),
+                                 static_cast<float>(lamn), st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -248,10 +319,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gram", &gram, "K1: dense Gram matrix");
   m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
   m.def("knm_t", &knm_t, "K3: K_nM^T Y, fixed-order two-stage sum");
-  m.def("falkon_matvec", &falkon_matvec, "K2: K_nM^T K_nM V");
+  m.def("falkon_matvec_fused", &falkon_matvec_fused,
+        "K2 or K7 on the cluster route: one Gram build per call");
+  m.def("falkon_matvec", &falkon_matvec, "K2 on the two-stage route: K_nM^T K_nM V");
   m.def("falkon_matvec_masked", &falkon_matvec_masked,
-        "K7: K_nM^T diag(mask_j) K_nM v_j per column");
-  m.def("rls_score", &rls_score, "K5: fused Eq. 3 score");
+        "K7 on the two-stage route: K_nM^T diag(mask_j) K_nM v_j per column");
+  m.def("rls_score", &rls_score, "K5: fused Eq. 3 score, fixed-order two-stage sum");
   m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
   m.def("flash_attention", &flash_attention, "K8: causal or bidirectional GQA attention");
   m.def("ssd", &ssd, "K9: the Mamba-2 SSD chunk scan");

@@ -16,17 +16,44 @@ namespace repro {
 void launch_gram(const float* x, const float* z, float* out, int n, int m, int d, int fam,
                  float s, bool bf16, cudaStream_t st);
 
-// K4, and stage 1 of K2: out (n, k) = k(x, z) a (m, k).
+// K2 and K7 on the cluster route, each Gram value built once: partial
+// (n_chunks, m, k) holds, per row chunk of chunk_rows rows (a multiple of 16),
+// that chunk's k(x, z)^T diag(mask) k(x, z) v (m, k); mask (n, k), or nullptr
+// for K2; xnorm (n,) the rows' squared norms (launch_row_norms). Thread-block
+// clusters of `cluster` (1, 2, 4 or 8) blocks, block b owning centers
+// [b slice, (b + 1) slice), slice a multiple of 256 with (cluster - 1) slice
+// < m <= cluster slice; kc (1, 2, 4, 5 or 8) output columns per work item;
+// d <= 64. The chunks are added by launch_reduce_partials_blocked.
+void launch_falkon_matvec_fused(const float* x, const float* z, const float* v,
+                                const float* mask, const float* xnorm, float* partial, int n,
+                                int m, int d, int k, int cluster, int slice, int kc,
+                                int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                                cudaStream_t st);
+
+// The cluster route's first launch: out (n,) = the squared norms of x's rows.
+void launch_row_norms(const float* x, float* out, int n, int d, cudaStream_t st);
+
+// The cluster route's last launch: out[i] = sum over chunks of partial[chunk, i],
+// i < len, in groups of 32 chunks (each group in index order, then the groups).
+void launch_reduce_partials_blocked(const float* partial, float* out, long long len,
+                                    int n_chunks, cudaStream_t st);
+
+// Floats of dynamic shared memory one block of launch_falkon_matvec_fused
+// takes for a slice of `slice` centers, d features and kc columns.
+long long falkon_fused_smem_floats(int slice, int d, int kc);
+
+// K4, and stage 1 of K2 on the two-stage route: out (n, k) = k(x, z) a (m, k).
 void launch_knm_matvec(const float* x, const float* z, const float* a, float* out, int n,
                        int m, int d, int k, int fam, float s, bool bf16, cudaStream_t st);
 
-// K7, stage 1: out (n, k) = (k(x, z) a (m, k)) * mask (n, k), elementwise.
+// K7, stage 1 on the two-stage route: out (n, k) = (k(x, z) a (m, k)) * mask (n, k), elementwise.
 void launch_knm_matvec_masked(const float* x, const float* z, const float* a, const float* mask,
                               float* out, int n, int m, int d, int k, int fam, float s,
                               bool bf16, cudaStream_t st);
 
-// K3, and stage 2 of K2 and K7, first half: partial (n_chunks, m, k) holds, per
-// chunk of chunk_rows rows, that chunk's k(x, z)^T y summed in row order.
+// K3, and stage 2 of K2 and K7 on the two-stage route, first half: partial
+// (n_chunks, m, k) holds, per chunk of chunk_rows rows, that chunk's
+// k(x, z)^T y summed in row order.
 void launch_knm_t_partial(const float* x, const float* z, const float* y, float* partial,
                           int n, int m, int d, int k, int n_chunks, int chunk_rows, int fam,
                           float s, bool bf16, cudaStream_t st);
@@ -36,11 +63,17 @@ void launch_knm_t_partial(const float* x, const float* z, const float* y, float*
 void launch_reduce_partials(const float* partial, float* out, long long len, int n_chunks,
                             cudaStream_t st);
 
-// K5: out (n,) = (kdiag - rowsum((G w) * G)) / lamn with G = k(x (n, d), z (m, d))
-// * zmask; w (m, m), zmask (m,), kdiag (n,); m <= 1024.
-void launch_rls_score(const float* x, const float* z, const float* w, const float* zmask,
-                      const float* kdiag, float* out, int n, int m, int d, int fam, float s,
-                      float lamn, bool bf16, cudaStream_t st);
+// K5, first half: partial (ceil(m / 128), n) holds, per 128-column tile of
+// w (m, m), each row's rowsum((g w)[:, tile] * g[:, tile]) with g = k(x (n, d),
+// z (m, d)) * zmask (m,) built on chip; m <= 1024.
+void launch_rls_score_partial(const float* x, const float* z, const float* w,
+                              const float* zmask, float* partial, int n, int m, int d, int fam,
+                              float s, bool bf16, cudaStream_t st);
+
+// K5, second half: out[i] = (K_ii - sum over tiles, in index order, of
+// partial[tile, i]) / lamn for i < n, K_ii = k(x_i, x_i) of family fam.
+void launch_rls_score_finish(const float* partial, const float* x, float* out, int n, int d,
+                             int n_tiles, int fam, float s, float lamn, cudaStream_t st);
 
 // K6, first half: partial (ceil(m / 128), n) holds, per 128-column tile of
 // w (m, m), each row's rowsum((g w)[:, tile] * g[:, tile]) for g (n, m).

@@ -1,7 +1,6 @@
-// K2-K4: the FALKON K_nM contractions on Hopper (sm_90a), hand-written CUDA C++.
-// K_nM = k(X, Z) is never stored: every Gram tile is built in registers by
-// the shared `gram_tile` (../csrc/gram_tile.cuh), contracted in shared
-// memory, and dropped.
+// K2-K4 and K7: the FALKON K_nM contractions on Hopper (sm_90a), hand-written CUDA C++.
+// K_nM = k(X, Z) is never stored: every Gram value is built on chip,
+// contracted, and dropped.
 //
 //   K4 knm_matvec    O = K_nM A        replaces falkon_matvec.py:221 `knm_matvec_pallas`
 //   K3 knm_t         R = K_nM^T Y      replaces falkon_matvec.py:184 `knm_t_pallas`
@@ -13,13 +12,16 @@
 // kernel; ../csrc/binding.cpp sequences them per entry point and checks
 // every launch.
 //
-// What bounds them on this card: the Gram tiles. At the main path's shapes
+// What bounds them on this card: the Gram values. At the main path's shapes
 // (n = 10^6 rows, M = 10^4 centers, d = 18, k = 1) the inputs are ~72 MB and
 // the outputs at most 0.4 MB, so the bytes bound is ~0.02 ms; each K_nM
 // evaluation is ~2 n M d = 3.6e11 fp32 FMA-FLOPs plus n M exps, i.e. ~6 ms
-// at the 67 TFLOP/s fp32 peak. They are bound by operations.
+// at the 67 TFLOP/s fp32 peak. Counted in issued instructions (18 FMAs, the
+// distance, an IEEE expf and the contractions: ~36 per value), one build of
+// the 10^10 values takes ~12 ms at the card's issue rate. They are bound by
+// operations.
 //
-// What the design does about it, and what it leaves for later:
+// K4 and K3 (the shared `gram_tile` of ../csrc/gram_tile.cuh):
 //  * K4 (knm_matvec): one block per 64-row tile of X loops over M in
 //    64-center chunks and accumulates its (64, k) output rows in registers.
 //    No reduction across blocks.
@@ -29,26 +31,64 @@
 //    its chunk's rows in order into partial[chunk], then `reduce_partials`
 //    adds the chunks in index order. No float atomics: the result is
 //    bit-repeatable for a given (n, M, k).
-//  * K2 (falkon_matvec): T = K_nM V must be complete over all M before
-//    G^T T. The TPU keeps the (bn, M) Gram tile in VMEM; at M = 10^4 one
-//    32-row tile is 1.3 MB and does not fit in a block's 227 KB. This first
-//    version therefore builds every Gram tile twice per call: stage 1 is the
-//    K4 kernel writing T (n, k) to device memory, stage 2 the K3 kernels on
-//    T. Twice the Gram FLOPs and exps of the fused reference.
-//  * K7 (falkon_matvec_masked): K2 with the row mask fused into stage 1's
-//    epilogue, T[r, c] = (K_nM V)[r, c] * mask[r, c], written once; stage 2
-//    is K3's kernels on T. Stage 1 is one kernel templated on MASKED, so K2
-//    and K4 compile to the same code as without it, and an all-ones mask
-//    gives K2's result bit for bit (acc * 1.0f is exact). The mask adds n k
-//    fp32 reads and n k multiplies to K2's work (20 MB and ~6 us at n = 10^6,
-//    k = 5): K7 is bound by operations, as K2 is, and inherits K2's double
-//    Gram build.
-//  * Output columns k are processed KC at a time (grid axis); k <= KC, the
-//    main path's case, builds each Gram tile once per stage.
-//  * Rows >= n and centers >= M are masked inside the kernels (gram_tile
-//    returns 0 there); nothing is padded, d and k are used as given.
+//
+// K2 and K7 have two routes, chosen by shape alone (ops.matvec_plan):
+//  * "cluster" (M up to 12 288 at d = 18 and k = 1; d <= 64):
+//    `falkon_matvec_fused_kernel`, one kernel templated on MASKED (K7) that
+//    builds each Gram value once per call. T = K_nM V must be complete over
+//    all M before G^T T; the TPU keeps the (bn, M) tile in VMEM, which at
+//    M = 10^4 (0.6 MB for 16 rows) does not fit in a block's 227 KB. So the
+//    M centers are split over a thread-block cluster of C <= 8 blocks (the
+//    portable size; the fewest that fit), block b holding a 256-aligned
+//    slice of ~M / C centers: its z slice (feature-major), their norms and V
+//    rows stay in its shared memory for the whole call, one block per SM.
+//    Clusters are persistent (as many as cudaOccupancyMaxActiveClusters
+//    allows) and walk over work items (column chunk, row chunk) in a static
+//    stride. A first launch
+//    writes the rows' squared norms. Per 16-row tile each block of 512
+//    threads
+//      1. builds G[16, slice] once: the x tile staged feature-major (its
+//         rows and norms prefetched into registers a tile ahead), each
+//         thread a 4 x 2 register tile over the whole of d (no per-DK
+//         barriers; a warp's x and z fragment loads one wavefront each), the
+//         family epilogue switched once per tile, G kept in shared memory;
+//      2. contracts it against its V rows into a partial T_b (16, NC) in
+//         registers, summed over a row's 8 column lanes by a fixed-order
+//         reduce-scatter of warp shuffles, then over the 16 warps in order;
+//      3. writes T_b into slot `rank` of every block's shared memory
+//         (distributed shared memory stores), then one cluster barrier
+//         (barrier.cluster arrive.release / wait.acquire; the slots
+//         double-buffered, so one barrier per tile suffices; the next tile's
+//         x is staged while it completes); each block adds the C slots in
+//         rank order, so every block holds the same T, bit for bit. MASKED
+//         multiplies T by the tile's mask rows (loaded a tile ahead), so an
+//         all-ones mask gives K2's result bit for bit (`* 1.0f` is exact);
+//      4. adds G_slice^T T into its slice's (slice, NC) accumulator in shared
+//         memory, each thread owning whole columns, two at a time.
+//    At the end of a row chunk each block writes partial[chunk, slice, k];
+//    `reduce_partials_blocked` adds the chunks in a fixed order, in groups
+//    of 32 (a single running sum over ~1 000 chunks drifted further from
+//    cuBLAS's sums: chip_smoke.py phase 4's refit agreement read 1.06e-3
+//    against its 1e-3 gate). The split is a
+//    function of (n, M, d, k) alone, not of how many clusters the card runs
+//    at once, so the result is bit-repeatable for a given shape. Output
+//    columns go NC (1, 2, 4, 5 or 8) at a time: the CV sweep's 5 folds in
+//    one chunk, without 3 idle columns.
+//    What holds it at ~5x its bound (chip_smoke.py phase 6): the build
+//    itself, well below the card's issue rate with one 16-warp block per
+//    SM, and the per-tile chain of barriers, the exchange and step 4 around
+//    it.
+//  * "two-stage" (above that cap): stage 1 is the K4 kernel writing T (n, k)
+//    to device memory (knm_matvec_kernel<MASKED>: K7 multiplies each output
+//    by the mask as it is written), stage 2 the K3 kernels on T. Twice the
+//    Gram builds of the fused reference.
+//  * Rows >= n and centers >= M are masked inside the kernels; nothing is
+//    padded, d and k are used as given.
+#include <cooperative_groups.h>
+
 #include "gram_tile.cuh"
 #include "launchers.h"
+#include "tile_epilogue.cuh"
 
 using namespace repro;
 
@@ -182,6 +222,461 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial, float*
   out[i] = sum;
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K7 on the cluster route: each Gram value built once per call.
+// ---------------------------------------------------------------------------
+
+constexpr int FR = 16;                      // rows per tile
+constexpr int FPASS = 256;                  // centers per build pass
+constexpr int FNJ = 2;                      // centers per thread in a pass (rows: 4)
+constexpr int FWARPS = FPASS / (8 * FNJ);   // a warp: 16 rows x 8 FNJ centers (16 warps)
+constexpr int FTHREADS = 32 * FWARPS;
+constexpr int FDMAX = 64;                   // largest d the route takes
+constexpr int FXQ = FR * FDMAX / FTHREADS;  // x values each thread prefetches (2)
+constexpr int FMAXC = 8;                    // largest cluster (the portable size)
+static_assert(FR * FDMAX % FTHREADS == 0 && FR * 8 <= FTHREADS, "a block shape that divides");
+
+// Offsets (in floats) into the block's dynamic shared memory for a slice of
+// `sw` centers (a multiple of FPASS), d features and nc output columns; every
+// region starts on a 16-byte boundary.
+struct FusedLayout {
+  int g, zs, zn, vs, oacc, xs, xn, wred, tpart, tfull, total;
+};
+
+__host__ __device__ inline FusedLayout fused_layout(int sw, int d, int nc) {
+  FusedLayout l;
+  l.g = 0;                              // [FR][sw]  the tile's Gram values
+  l.zs = l.g + FR * sw;                 // [d][sw]   the slice's centers, feature-major
+  l.zn = l.zs + d * sw;                 // [sw]      their squared norms
+  l.vs = l.zn + sw;                     // [nc][sw]  their rows of V, this column chunk
+  l.oacc = l.vs + nc * sw;              // [nc][sw]  G^T T over the row chunk
+  l.xs = l.oacc + nc * sw;              // [2][d][FR] a tile's rows, feature-major (two tiles)
+  l.xn = l.xs + 2 * d * FR;             // [2][FR]   their squared norms
+  l.wred = l.xn + 2 * FR;               // [FWARPS][FR][nc] per-warp shares of T
+  l.tpart = l.wred + FWARPS * FR * nc;  // [2][FMAXC][FR][nc] every block's T partial
+  l.tfull = l.tpart + 2 * FMAXC * FR * nc;  // [FR][nc]  T
+  l.total = l.tfull + FR * nc;
+  return l;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + FR) of x as stored, 0 from row rend on: element
+// tid + FTHREADS q of the block into xp[q]; thread tid < FR also takes row
+// row0 + tid's squared norm into xpn.
+__device__ __forceinline__ void prefetch_x(float (&xp)[FXQ], float& xpn,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ xnorm, int row0, int rend,
+                                           int d, int tid) {
+  const long long valid = static_cast<long long>(rend - row0) * d;
+  const float* src = x + static_cast<long long>(row0) * d;
+#pragma unroll
+  for (int q = 0; q < FXQ; ++q) {
+    const int e = tid + FTHREADS * q;
+    xp[q] = (e < FR * d && e < valid) ? src[e] : 0.0f;
+  }
+  xpn = tid < FR && row0 + tid < rend ? xnorm[row0 + tid] : 0.0f;
+}
+
+// The prefetched rows into xs_buf (feature-major; bf16: rounded) and their
+// norms into xn_buf.
+__device__ __forceinline__ void stage_x(const float (&xp)[FXQ], float xpn, float* xs_buf,
+                                        float* xn_buf, int d, int bf16, int tid) {
+#pragma unroll
+  for (int q = 0; q < FXQ; ++q) {
+    const int e = tid + FTHREADS * q;
+    if (e < FR * d) {
+      const int r = e / d, f = e - r * d;
+      xs_buf[f * FR + r] = bf16 ? round_bf16(xp[q]) : xp[q];
+    }
+  }
+  if (tid < FR) xn_buf[tid] = xpn;
+}
+
+// FNJ (2) consecutive floats of shared memory, 8-byte aligned, to registers
+// and back.
+static_assert(FNJ == 2, "the column fragments are float2");
+
+__device__ __forceinline__ void load_cols(const float* p, float (&b)[FNJ]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  b[0] = t.x, b[1] = t.y;
+}
+
+__device__ __forceinline__ void store_cols(float* p, const float (&b)[FNJ]) {
+  *reinterpret_cast<float2*>(p) = make_float2(b[0], b[1]);
+}
+
+// v[0..H) summed over the lanes that differ in lane bits LB, LB / 2, .., 1,
+// in a fixed order: while a lane holds an even number of values, each step
+// sends half of them to the partner and keeps the sum of the other half (a
+// reduce-scatter); with an odd number left, the steps are a butterfly. On
+// return the lane holds the sums of values idx .. idx + lane_kept(H, LB) in
+// v[0 ..), and lanes that differ only in the butterfly's bits
+// (lane_copies(H, LB)) hold the same sums.
+__host__ __device__ constexpr int lane_kept(int h, int lb) {
+  return lb == 0 ? h : h % 2 == 0 ? lane_kept(h / 2, lb / 2) : lane_kept(h, lb / 2);
+}
+
+__host__ __device__ constexpr int lane_copies(int h, int lb) {
+  return lb == 0 ? 0 : h % 2 == 0 ? lane_copies(h / 2, lb / 2) : lb | lane_copies(h, lb / 2);
+}
+
+template <int H, int LB, int V>
+__device__ __forceinline__ void lane_sum(float (&v)[V], int lane, int& idx) {
+  if constexpr (LB > 0) {
+    if constexpr (H % 2 == 0) {
+      const bool up = (lane & LB) != 0;
+#pragma unroll
+      for (int q = 0; q < H / 2; ++q) {
+        const float keep = up ? v[q + H / 2] : v[q];
+        const float give = up ? v[q] : v[q + H / 2];
+        v[q] = keep + __shfl_xor_sync(0xffffffffu, give, LB);
+      }
+      if (up) idx += H / 2;
+      lane_sum<H / 2, LB / 2>(v, lane, idx);
+    } else {
+#pragma unroll
+      for (int q = 0; q < H; ++q) v[q] += __shfl_xor_sync(0xffffffffu, v[q], LB);
+      lane_sum<H, LB / 2>(v, lane, idx);
+    }
+  }
+}
+
+// partial[chunk, base .. base + width, kc0 .. kc0 + kw] for every work item
+// (column chunk, row chunk) of this cluster, where block `rank` of the
+// cluster owns centers [base, base + width), base = rank * sw. MASKED (K7)
+// multiplies T by mask (n, k) before G^T T.
+template <bool MASKED, int NC>
+__global__ void __launch_bounds__(FTHREADS, 1)
+falkon_matvec_fused_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                           const float* __restrict__ v, const float* __restrict__ mask,
+                           const float* __restrict__ xnorm, float* __restrict__ partial, int n,
+                           int m, int d, int k, int sw, int chunk_rows, int n_chunks, int fam,
+                           float s, int bf16) {
+  extern __shared__ __align__(16) float dyn[];
+  namespace coop = cooperative_groups;
+  coop::cluster_group cluster = coop::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cid = blockIdx.x / csize, n_clusters = gridDim.x / csize;
+  const FusedLayout L = fused_layout(sw, d, NC);
+  float* gs = dyn + L.g;
+  float* zs = dyn + L.zs;
+  float* zn = dyn + L.zn;
+  float* vs = dyn + L.vs;
+  float* oacc = dyn + L.oacc;
+  float* wred = dyn + L.wred;
+  float* tpart = dyn + L.tpart;
+  float* tfull = dyn + L.tfull;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // lane (lr, lc) of warp w: rows 4 lr + i and slice columns p0 + cw + j of a
+  // pass, cw = 8 FNJ w + FNJ lc, so an x fragment load covers 64 contiguous
+  // bytes and a z fragment load 8 * 8 FNJ: one wavefront each
+  const int lr = lane / 8, lc = lane % 8, cw = 8 * FNJ * warp + FNJ * lc;
+  const int base = rank * sw;
+  const int width = max(0, min(m, base + sw) - base);
+
+  // The slice, once per call: z feature-major (bf16: rounded), its norms from
+  // the unrounded values.
+  for (int e = tid; e < sw * d; e += FTHREADS) {
+    const int j = e / d, f = e - j * d;
+    const float val = j < width ? z[static_cast<long long>(base + j) * d + f] : 0.0f;
+    zs[f * sw + j] = bf16 ? round_bf16(val) : val;
+  }
+  for (int j = tid; j < sw; j += FTHREADS) {
+    float acc = 0.0f;
+    if (j < width) {
+      const float* zr = z + static_cast<long long>(base + j) * d;
+      for (int f = 0; f < d; ++f) acc = fmaf(zr[f], zr[f], acc);
+    }
+    zn[j] = acc;
+  }
+
+  const int items = (k + NC - 1) / NC * n_chunks;
+  int buf = 0;
+  for (int item = cid; item < items; item += n_clusters) {
+    const int kc0 = item / n_chunks * NC, chunk = item % n_chunks;
+    const int kw = min(NC, k - kc0);
+    const int rbeg = min(n, chunk * chunk_rows), rend = min(n, rbeg + chunk_rows);
+    __syncthreads();  // the previous item is done with vs
+    for (int e = tid; e < NC * sw; e += FTHREADS) {
+      const int c = e / sw, j = e - c * sw;
+      vs[e] = (c < kw && j < width) ? v[static_cast<long long>(base + j) * k + kc0 + c] : 0.0f;
+    }
+    for (int j = tid; j < sw; j += FTHREADS)  // the columns this thread owns in step F
+#pragma unroll
+      for (int c = 0; c < NC; ++c) oacc[c * sw + j] = 0.0f;
+    // K7: this thread's mask entry T[tid / NC, tid % NC] of a tile, 1 where
+    // T is 0 anyway (rows past rend, columns past kw); loaded a tile ahead
+    auto mask_entry = [&](int r0) {
+      const int r = tid / NC, c = tid - r * NC;
+      return (MASKED && tid < FR * NC && r0 + r < rend && c < kw)
+                 ? mask[static_cast<long long>(r0 + r) * k + kc0 + c]
+                 : 1.0f;
+    };
+    float xp[FXQ], xpn, mcur = 1.0f;
+    int xb = 0;  // the xs and xn buffers of the current tile
+    if (rbeg < rend) {
+      prefetch_x(xp, xpn, x, xnorm, rbeg, rend, d, tid);
+      if constexpr (MASKED) mcur = mask_entry(rbeg);
+      stage_x(xp, xpn, dyn + L.xs, dyn + L.xn, d, bf16, tid);
+      if (rbeg + FR < rend) prefetch_x(xp, xpn, x, xnorm, rbeg + FR, rend, d, tid);
+    }
+
+    for (int row0 = rbeg; row0 < rend; row0 += FR) {
+      // The tile's rows and norms are in place; step F of the last tile is done.
+      __syncthreads();
+
+      // C. G[tile, slice] into shared memory, and this block's share of
+      //    T = G V in registers; 4 x 4 register tiles over the whole of d.
+      const float* xs = dyn + L.xs + xb * d * FR;
+      constexpr int V = 4 * NC;
+      float tp[V];  // T shares of rows 4 lr + i, column c at i NC + c
+#pragma unroll
+      for (int q = 0; q < V; ++q) tp[q] = 0.0f;
+      const float4 xn4 = *reinterpret_cast<const float4*>(dyn + L.xn + xb * FR + 4 * lr);
+      const float xni[4] = {xn4.x, xn4.y, xn4.z, xn4.w};
+      const int rows = rend - row0;
+      for (int p0 = 0; p0 < width; p0 += FPASS) {
+        const int c0 = p0 + cw;
+        float g[4][FNJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < FNJ; ++j) g[i][j] = 0.0f;
+        const float* xa = xs + 4 * lr;
+        const float* zb = zs + c0;
+#pragma unroll 4
+        for (int f = 0; f < d; ++f) {
+          const float4 a4 = *reinterpret_cast<const float4*>(xa + f * FR);
+          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+          float b[FNJ];
+          load_cols(zb + f * sw, b);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < FNJ; ++j) g[i][j] = fmaf(a[i], b[j], g[i][j]);
+        }
+        float znj[FNJ];
+        load_cols(zn + c0, znj);
+        tile_epilogue(fam, g, xni, znj, s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < FNJ; ++j)
+            if (4 * lr + i >= rows || c0 + j >= width) g[i][j] = 0.0f;
+          store_cols(gs + (4 * lr + i) * sw + c0, g[i]);
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float vj[FNJ];
+          load_cols(vs + c * sw + c0, vj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float t = tp[i * NC + c];
+#pragma unroll
+            for (int j = 0; j < FNJ; ++j) t = fmaf(g[i][j], vj[j], t);
+            tp[i * NC + c] = t;
+          }
+        }
+      }
+
+      // D. The block's T partial: a row's 8 lanes in a fixed-order
+      //    reduce-scatter, then its 8 warps in order.
+      int idx = 0;
+      lane_sum<V, 4>(tp, lane, idx);
+      if ((lc & lane_copies(V, 4)) == 0) {
+#pragma unroll
+        for (int q = 0; q < lane_kept(V, 4); ++q) wred[(warp * 4 + lr) * V + idx + q] = tp[q];
+      }
+      __syncthreads();
+      // The block's partial goes into slot `rank` of every block's tpart[buf],
+      // through distributed shared memory.
+      float* tpb = tpart + buf * FMAXC * FR * NC;
+      if (tid < FR * NC) {
+        float t = wred[tid];
+#pragma unroll
+        for (int w = 1; w < FWARPS; ++w) t += wred[w * FR * NC + tid];
+#pragma unroll
+        for (int b = 0; b < FMAXC; ++b)
+          if (b < csize) cluster.map_shared_rank(tpb + rank * FR * NC, b)[tid] = t;
+      }
+
+      // E. T: the C partials, in this block's own shared memory after one
+      //    cluster barrier, added in rank order, so every block holds the same
+      //    T. A block writes into tpart[buf] again two tiles later, after the
+      //    next barrier, which every block passes only when it has read this
+      //    one. While the barrier completes, the next tile's rows go to the
+      //    other xs buffer.
+      cluster_arrive();
+      const bool next = row0 + FR < rend;
+      float mnext = 1.0f;
+      if (next) {
+        stage_x(xp, xpn, dyn + L.xs + (xb ^ 1) * d * FR, dyn + L.xn + (xb ^ 1) * FR, d, bf16,
+                tid);
+        if (row0 + 2 * FR < rend) prefetch_x(xp, xpn, x, xnorm, row0 + 2 * FR, rend, d, tid);
+        if constexpr (MASKED) mnext = mask_entry(row0 + FR);
+      }
+      cluster_wait();
+      if (tid < FR * NC) {
+        float t = tpb[tid];
+#pragma unroll
+        for (int b = 1; b < FMAXC; ++b)
+          if (b < csize) t += tpb[b * FR * NC + tid];
+        if constexpr (MASKED) t *= mcur;
+        tfull[tid] = t;
+      }
+      mcur = mnext;
+      __syncthreads();
+
+      // F. oacc += G_slice^T T; each thread owns whole columns j = tid + FTHREADS s.
+      if constexpr (FR * NC <= 32) {
+        float tr[FR * NC];
+#pragma unroll
+        for (int u = 0; u < FR * NC; ++u) tr[u] = tfull[u];
+        for (int j = tid; j < width; j += FTHREADS) {
+          float a[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) a[c] = 0.0f;
+#pragma unroll
+          for (int r = 0; r < FR; ++r) {
+            const float gv = gs[r * sw + j];
+#pragma unroll
+            for (int c = 0; c < NC; ++c) a[c] = fmaf(gv, tr[r * NC + c], a[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c) oacc[c * sw + j] += a[c];
+        }
+      } else {
+        // two columns at a time, so that each row of T is read once for both
+        for (int j = tid; j < width; j += 2 * FTHREADS) {
+          const int j2 = j + FTHREADS;
+          const bool two = j2 < width;
+          float a[NC], a2[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) a[c] = a2[c] = 0.0f;
+#pragma unroll 4
+          for (int r = 0; r < FR; ++r) {
+            float tr[NC];
+            if constexpr (NC % 4 == 0) {
+#pragma unroll
+              for (int c4 = 0; c4 < NC; c4 += 4) {
+                const float4 t4 = *reinterpret_cast<const float4*>(tfull + r * NC + c4);
+                tr[c4] = t4.x, tr[c4 + 1] = t4.y, tr[c4 + 2] = t4.z, tr[c4 + 3] = t4.w;
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < NC; ++c) tr[c] = tfull[r * NC + c];
+            }
+            const float gv = gs[r * sw + j], gv2 = two ? gs[r * sw + j2] : 0.0f;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              a[c] = fmaf(gv, tr[c], a[c]);
+              a2[c] = fmaf(gv2, tr[c], a2[c]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            oacc[c * sw + j] += a[c];
+            if (two) oacc[c * sw + j2] += a2[c];
+          }
+        }
+      }
+      xb ^= 1;
+      buf ^= 1;
+    }
+
+    // The row chunk's share of this slice, read back by the threads that wrote it.
+    for (int j = tid; j < width; j += FTHREADS)
+      for (int c = 0; c < kw; ++c)
+        partial[(static_cast<long long>(chunk) * m + base + j) * k + kc0 + c] = oacc[c * sw + j];
+  }
+  cluster.sync();  // no block leaves while a peer may still read its T partials
+}
+
+template <bool MASKED, int NC>
+void launch_fused(const float* x, const float* z, const float* v, const float* mask,
+                  const float* xnorm, float* partial, int n, int m, int d, int k, int cluster,
+                  int sw, int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                  cudaStream_t st) {
+  const auto kernel = falkon_matvec_fused_kernel<MASKED, NC>;
+  const int smem = fused_layout(sw, d, NC).total * static_cast<int>(sizeof(float));
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // Persistent clusters: as many as fit on the card at once. The work items
+  // and the sum order do not depend on this count.
+  int active = 0;
+  cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(kernel), &cfg);
+  const int items = (k + NC - 1) / NC * n_chunks;
+  cfg.gridDim = dim3(max(1, min(active, items)) * cluster);
+  cudaLaunchKernelEx(&cfg, kernel, x, z, v, mask, xnorm, partial, n, m, d, k, sw, chunk_rows,
+                     n_chunks, fam, s, bf16 ? 1 : 0);
+}
+
+// The instantiation for NC output columns per work item (1, 2, 4, 5 or 8).
+template <bool MASKED>
+void launch_fused_kc(const float* x, const float* z, const float* v, const float* mask,
+                     const float* xnorm, float* partial, int n, int m, int d, int k, int cluster,
+                     int sw, int kc, int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                     cudaStream_t st) {
+  const auto launch = kc == 1   ? launch_fused<MASKED, 1>
+                      : kc == 2 ? launch_fused<MASKED, 2>
+                      : kc == 4 ? launch_fused<MASKED, 4>
+                      : kc == 5 ? launch_fused<MASKED, 5>
+                                : launch_fused<MASKED, 8>;
+  launch(x, z, v, mask, xnorm, partial, n, m, d, k, cluster, sw, chunk_rows, n_chunks, fam, s,
+         bf16, st);
+}
+
+// out[i] = the sum over chunks of partial[chunk, i], i < len, taken as
+// groups of RGROUP chunks in index order, each summed in order, and the
+// group sums added in order: a fixed order, and no chain longer than
+// RGROUP + n_chunks / RGROUP for the cluster route's ~1 000 row chunks.
+constexpr int RGROUP = 32;
+
+__global__ void reduce_partials_blocked_kernel(const float* __restrict__ partial,
+                                               float* __restrict__ out, long long len,
+                                               int n_chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  float total = 0.0f;
+  for (int g0 = 0; g0 < n_chunks; g0 += RGROUP) {
+    float group = 0.0f;
+    for (int ch = g0; ch < min(n_chunks, g0 + RGROUP); ++ch)
+      group += partial[(long long)ch * len + i];
+    total += group;
+  }
+  out[i] = total;
+}
+
+// out[i] = |x_i|^2, the features summed in order; one thread per row.
+__global__ void row_norms_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
+                                 int d) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* xr = x + static_cast<long long>(i) * d;
+  float a = 0.0f;
+  for (int f = 0; f < d; ++f) a = fmaf(xr[f], xr[f], a);
+  out[i] = a;
+}
+
 }  // namespace
 
 void repro::launch_knm_matvec(const float* x, const float* z, const float* a, float* out,
@@ -213,4 +708,33 @@ void repro::launch_reduce_partials(const float* partial, float* out, long long l
   const int threads = 256;
   reduce_partials_kernel<<<(unsigned)((len + threads - 1) / threads), threads, 0, st>>>(
       partial, out, len, n_chunks);
+}
+
+long long repro::falkon_fused_smem_floats(int slice, int d, int kc) {
+  return fused_layout(slice, d, kc).total;
+}
+
+void repro::launch_falkon_matvec_fused(const float* x, const float* z, const float* v,
+                                       const float* mask, const float* xnorm, float* partial,
+                                       int n, int m, int d, int k, int cluster, int slice, int kc,
+                                       int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                                       cudaStream_t st) {
+  if (mask != nullptr)
+    launch_fused_kc<true>(x, z, v, mask, xnorm, partial, n, m, d, k, cluster, slice, kc,
+                          chunk_rows, n_chunks, fam, s, bf16, st);
+  else
+    launch_fused_kc<false>(x, z, v, mask, xnorm, partial, n, m, d, k, cluster, slice, kc,
+                           chunk_rows, n_chunks, fam, s, bf16, st);
+}
+
+void repro::launch_reduce_partials_blocked(const float* partial, float* out, long long len,
+                                           int n_chunks, cudaStream_t st) {
+  const int threads = 256;
+  reduce_partials_blocked_kernel<<<(unsigned)((len + threads - 1) / threads), threads, 0, st>>>(
+      partial, out, len, n_chunks);
+}
+
+void repro::launch_row_norms(const float* x, float* out, int n, int d, cudaStream_t st) {
+  const int threads = 256;
+  row_norms_kernel<<<(n + threads - 1) / threads, threads, 0, st>>>(x, out, n, d);
 }

@@ -9,14 +9,33 @@ CV). A CUDA tensor goes to the kernels of
 ``falkon_matvec.cu`` (through the extension ``build.py`` loads) or the call
 raises; a CPU tensor goes to the plain version in ``ref.py``. Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
+
+K2 and K7 take one of two routes, chosen by ``matvec_plan(n, M, d, k)``, a
+pure function of the shape (never of a failure):
+
+* ``"cluster"``: one kernel builds each Gram value once per call. The M
+  centers are split over a thread-block cluster of 1, 2, 4 or 8 blocks (the
+  fewest whose per-block slice -- a multiple of 256 centers, its z rows,
+  norms, V rows and accumulator and a 16-row Gram tile -- fits in 227 KB of
+  shared memory); the blocks exchange their shares of T = K_nM V through
+  distributed shared memory. Taken for d <= 64 and M up to the cap that
+  budget sets (12 288 at d = 18 and k = 1).
+* ``"two-stage"`` (larger M or d): the K4 kernel writes T (n, k) to device
+  memory and the K3 kernels form K_nM^T T, building every Gram value twice.
+
+Both add their row chunks' partial sums in a fixed order (bit-repeatable
+for a given shape), and both count under ``falkon_matvec.launches`` (K2) or
+``falkon_matvec_masked.launches`` (K7).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ...families import get_family
 from .. import build
-from ..common import is_cpu, require_cuda
+from ..common import is_cpu, require_cuda, round_up
 from ..gram.ops import cuda_family_id
 from .ref import falkon_matvec_masked_ref, falkon_matvec_ref, knm_matvec_ref, knm_t_ref
 
@@ -37,6 +56,62 @@ def row_chunks(n: int, m: int) -> tuple[int, int]:
     want = min(max(1, -(-TARGET_BLOCKS // m_tiles)), n_tiles, 65535)
     chunk_rows = -(-n_tiles // want) * TILE
     return max(1, -(-n // chunk_rows)), chunk_rows
+
+
+#: the cluster route's shapes (falkon_matvec.cu): rows per tile, centers per
+#: slice step (a build pass), warps per block, largest d, output-column
+#: chunks, cluster sizes, the shared memory a block may use, and the most row
+#: chunks a call sums.
+FUSED_ROWS = 16
+FUSED_SLICE_STEP = 256
+FUSED_WARPS = 16
+FUSED_DMAX = 64
+FUSED_KC = (1, 2, 4, 5, 8)
+FUSED_CLUSTERS = (1, 2, 4, 8)
+SMEM_BYTES = 232_448
+FUSED_MAX_CHUNKS = 1024
+
+
+class MatvecPlan(NamedTuple):
+    """How K2 / K7 run at one shape: ``route`` "cluster" (``cluster`` blocks
+    of ``slice_cols`` centers each, ``kc`` output columns per work item) or
+    "two-stage"; the rows are summed in ``n_chunks`` chunks of
+    ``chunk_rows``."""
+
+    route: str
+    cluster: int
+    slice_cols: int
+    kc: int
+    n_chunks: int
+    chunk_rows: int
+
+
+def fused_smem_floats(slice_cols: int, d: int, kc: int) -> int:
+    """Floats of shared memory one block of the cluster route takes
+    (``fused_layout`` in falkon_matvec.cu): per center of the slice its Gram
+    column, z row, norm, V row and accumulator; per tile row, for two tiles,
+    its x row feature-major and its norm; the per-warp shares of T, every
+    block's T partial (double-buffered) and T."""
+    return (slice_cols * (FUSED_ROWS + d + 1 + 2 * kc) + 2 * (d + 1) * FUSED_ROWS
+            + (FUSED_WARPS + 2 * FUSED_CLUSTERS[-1] + 1) * FUSED_ROWS * kc)
+
+
+def matvec_plan(n: int, m: int, d: int, k: int) -> MatvecPlan:
+    """The route of K2 / K7 for x (n, d), M centers and k columns: the
+    cluster route with the fewest blocks per cluster whose slice fits in a
+    block's shared memory and leaves no block without centers, else the
+    two-stage route. A function of the shape alone."""
+    kc = next(c for c in FUSED_KC if c >= min(max(k, 1), FUSED_KC[-1]))
+    if d <= FUSED_DMAX:
+        for cluster in FUSED_CLUSTERS:
+            sw = round_up(-(-m // cluster), FUSED_SLICE_STEP)
+            if (cluster - 1) * sw < m and 4 * fused_smem_floats(sw, d, kc) <= SMEM_BYTES:
+                tiles = max(1, -(-n // FUSED_ROWS))
+                per = -(-tiles // FUSED_MAX_CHUNKS)
+                return MatvecPlan("cluster", cluster, sw, kc, -(-tiles // per),
+                                  per * FUSED_ROWS)
+    n_chunks, chunk_rows = row_chunks(n, m)
+    return MatvecPlan("two-stage", 0, 0, 0, n_chunks, chunk_rows)
 
 
 def _inv_scale(kind: str, sigma: float) -> float:
@@ -71,18 +146,32 @@ def falkon_matvec(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, sigma: floa
     s = _inv_scale(kind, sigma)
     if is_cpu(x, z, v):
         return falkon_matvec_ref(x, z, v, s, kind=kind, bf16=bf16)
-    fam_id = cuda_family_id(kind)
     x, z = _check_xz(x, z)
     vp, squeeze = _as_panel(v, z.shape[0], "v")
-    n = x.shape[0]
-    m, k = vp.shape
-    n_chunks, chunk_rows = row_chunks(n, m)
-    t = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n_chunks, m, k), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    build.extension().falkon_matvec(x, z, vp, t, partial, out, chunk_rows, fam_id, s, bf16)
+    out = _matvec(x, z, vp, None, cuda_family_id(kind), s, bf16)
     falkon_matvec.launches += 1
     return out[:, 0] if squeeze else out
+
+
+def _matvec(x, z, vp, mp, fam_id: int, s: float, bf16: bool) -> torch.Tensor:
+    """K2 (``mp`` None) or K7 on CUDA tensors, by the route of ``matvec_plan``."""
+    n, d = x.shape
+    m, k = vp.shape
+    plan = matvec_plan(n, m, d, k)
+    partial = torch.empty((plan.n_chunks, m, k), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    ext = build.extension()
+    if plan.route == "cluster":
+        xnorm = torch.empty((n,), dtype=torch.float32, device=x.device)
+        ext.falkon_matvec_fused(x, z, vp, mp, xnorm, partial, out, plan.cluster, plan.slice_cols,
+                                plan.kc, plan.chunk_rows, fam_id, s, bf16)
+        return out
+    t = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    if mp is None:
+        ext.falkon_matvec(x, z, vp, t, partial, out, plan.chunk_rows, fam_id, s, bf16)
+    else:
+        ext.falkon_matvec_masked(x, z, vp, mp, t, partial, out, plan.chunk_rows, fam_id, s, bf16)
+    return out
 
 
 def _as_mask(mask: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -108,18 +197,10 @@ def falkon_matvec_masked(x: torch.Tensor, z: torch.Tensor, v: torch.Tensor, mask
     mask = _as_mask(mask, x, v)
     if is_cpu(x, z, v, mask):
         return falkon_matvec_masked_ref(x, z, v, mask, s, kind=kind, bf16=bf16)
-    fam_id = cuda_family_id(kind)
     x, z = _check_xz(x, z)
     vp, squeeze = _as_panel(v, z.shape[0], "v")
-    mp = mask[:, None] if squeeze else mask
-    n = x.shape[0]
-    m, k = vp.shape
-    n_chunks, chunk_rows = row_chunks(n, m)
-    t = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n_chunks, m, k), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    build.extension().falkon_matvec_masked(x, z, vp, mp, t, partial, out, chunk_rows, fam_id, s,
-                                           bf16)
+    mp = require_cuda(mask[:, None] if squeeze else mask, "mask")
+    out = _matvec(x, z, vp, mp, cuda_family_id(kind), s, bf16)
     falkon_matvec_masked.launches += 1
     return out[:, 0] if squeeze else out
 

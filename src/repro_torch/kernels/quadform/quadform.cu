@@ -42,9 +42,12 @@
 // k-tiles in index order. No float atomics: the result is bit-repeatable.
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "gram_tile.cuh"
 #include "launchers.h"
 
+using repro::cp_async16;
+using repro::cp_async4;
 using repro::round_bf16;
 
 namespace {
@@ -58,22 +61,6 @@ struct Stage {
   float g[QT][GLD];  // G[rows, j-chunk], row-major
   float w[QK][QT];   // W[j-chunk, k-tile]
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from device to shared memory, asynchronously; `bytes` 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const float* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
 
 // G[row0.., j0..j0 + QK) and W[j0..j0 + QK, col0..) into one stage, zeros
 // past n and m. VEC: 4-float chunks (m % 4 == 0, so a chunk is all in or

@@ -14,140 +14,338 @@
 // 67 TFLOP/s fp32 peak, against ~2 us of bytes.
 //
 // Design. A block has at most 227 KB of shared memory, so W (4 MB at
-// M = 1024) cannot stay resident as it does in VMEM. One block of 256
-// threads owns BN = 32 candidate rows:
-//  1. it builds their (32, M) Gram slab with the shared `gram_tile`
-//     (../csrc/gram_tile.cuh) into dynamic shared memory (133 KB at
-//     M = 1024) and zeroes the invalid center columns with zmask, as
-//     rls_score.py:55 does (the padded rows of W are the identity);
-//  2. it streams W through shared memory in (32 x 64) tiles: for each
-//     64-column tile of W it forms acc (32 x 64) = G W[:, tile] with fp32
-//     FMA (each thread a 2 x 4 sub-block in registers) and adds
-//     rowsum(acc * G[:, tile]) to each row's running sum, tiles in order;
-//  3. the 16 lanes that hold a row add their sums in a fixed butterfly and
-//     the epilogue writes (kdiag - quad) / lam n. lam n is a kernel
-//     argument, so the whole ladder runs one compiled kernel.
-// Each row belongs to one block: no cross-block sum, no atomics, and the
-// result is bit-repeatable. Ragged R, M and d are masked in the kernel
-// (gram_tile returns 0 outside the valid range; W is read only inside
-// [0, M)). With bf16, only the operands of x . z and of G W are rounded;
-// the norms, the accumulation, the product with G and the epilogue stay
-// fp32 (rls_score.py:44,56-57). The Gram slab is built as 64-row tiles of
-// which the block keeps 32: the Gram work is ~2 % of the G W work at
-// M = 1024, so the waste is small where the time is.
+// M = 1024) cannot stay resident as it does in VMEM; the Gram rows can. A
+// block of 256 threads owns 32 candidate rows and two 128-column tiles of W
+// (at the ladder's (6 144, 640): 576 blocks, two per SM):
+//  1. it builds the masked Gram slab G[rows, 0:M] * zmask of its rows into
+//     shared memory (132 KB at M = 1024), 128 centers per pass, x and z
+//     staged as stored, 32 features a stage; each thread a 4 x 4 register
+//     tile, a warp over 16 rows x 32 centers (one wavefront per fragment
+//     load), the norms from the same unrounded values (no separate pass);
+//     G is never written to device memory. The slab serves both column
+//     tiles; the Gram work is ~1 / (0.5 M / (2d + 5)) of the G W work;
+//  2. per column tile, it forms acc (32 x 128) = G W[:, tile] with K6's
+//     kind of main loop, the depth split between two halves of 4 warps
+//     (each its own 3-stage cp.async ring of 8-row W stages, one named
+//     barrier per stage; 16-byte copies when M % 4 == 0 and W is aligned,
+//     else 4-byte, zero-filled past M): each thread an 8 x 4 register
+//     tile, float4 fragments of G (4 depths of a row) and W, a warp over 4
+//     consecutive rows x 8 column quads so that both fragment loads are one
+//     wavefront (the slab's row stride is 4 mod 8 floats): 12 LDS.128 per
+//     128 FMAs. `BF16` is a template parameter: its kernel rounds the
+//     fragments of x . z and of G W; the fp32 kernel carries no branch;
+//  3. adds the second half's acc to the first's, multiplies by G[rows,
+//     tile] (fp32, unrounded) and sums each row over the tile in a fixed
+//     order (the thread's 4 columns, a butterfly over the row's 8 lanes,
+//     then the 4 warps in order) into partial[tile, row].
+// A second kernel adds the k-tiles in index order and writes
+// (K_ii - sum) / lam n, K_ii from the family's diagonal; lam n is an
+// argument, so the whole ladder runs one compiled kernel. No float atomics:
+// the result is bit-repeatable. Ragged R, M and d are masked in the kernel.
+// With bf16, only the operands of x . z and of G W are rounded
+// (rls_score.py:44,56-57).
+#include <cstdint>
+
+#include "cp_async.cuh"
 #include "gram_tile.cuh"
 #include "launchers.h"
+#include "tile_epilogue.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int BN = 32;           // candidate rows per block
-constexpr int WJ = 32;           // W rows per streamed tile
-constexpr int WK = 64;           // W columns per streamed tile
-constexpr int GPAD = 16;         // Gram-slab row padding (conflict-free row pairs)
-constexpr int RPT = BN / 16;     // rows per thread (2)
-constexpr int CPT = WK / 16;     // columns per thread (4)
+constexpr int SR = 32;         // candidate rows per block
+constexpr int SN = 128;        // W columns per block, centers per build pass
+constexpr int SK = 8;          // W rows per ring stage
+constexpr int SDK = 32;        // features per build stage
+constexpr int STHREADS = 256;  // two halves of 4 warps (8 x 4 register tiles in G W)
+constexpr int HALF = STHREADS / 2;
+constexpr int SSTAGES = 3;     // W stages in flight, per half
+constexpr int SCT = 2;         // W column tiles per block, one slab build for all
+constexpr int XLD = SR + 4;    // floats per shared row of the staged x
+constexpr int ZLD = SN + 4;    // floats per shared row of the staged z
 
-__global__ void __launch_bounds__(THREADS)
-rls_score_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                 const float* __restrict__ w, const float* __restrict__ zmask,
-                 const float* __restrict__ kdiag, float* __restrict__ out, int n, int m,
-                 int mpad, int d, int fam, float s, float lamn, int bf16) {
-  extern __shared__ float dyn[];
-  const int gstride = mpad + GPAD;
-  float* gs = dyn;                   // [BN][gstride]: the masked Gram slab
-  float* ws = dyn + BN * gstride;    // [WJ][WK]: the current W tile
-  __shared__ TileSmem sm;
-  const int row0 = blockIdx.x * BN;
-  const int rend = min(n, row0 + BN);  // the block's rows are [row0, rend)
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+struct WStage {
+  float w[SK][SN];  // W[j-chunk, k-tile]
+};
 
-  // 1. Gram slab. gram_tile covers 64 rows; rows >= rend come back as 0 and
-  //    only the first BN are kept.
-  for (int col0 = 0; col0 < mpad; col0 += TILE) {
-    float g[PER][PER];
-    gram_tile(x, rend, row0, z, m, col0, d, fam, s, bf16 != 0, sm, g);
+// The two halves' W rings of the G W product and, before them, the x and z
+// stages of the slab build; after them, one half's accumulators for the
+// other: never live at once.
+union Ring {
+  WStage st[2][SSTAGES];
+  struct {
+    float zs[SDK][ZLD];  // z[pass centers, feature chunk], feature-major
+    float xs[SDK][XLD];  // x[rows, feature chunk], feature-major
+  } b;
+  float acc[32][HALF];   // the second half's acc[i][j] at [4 i + j][thread]
+};
+
+// W[j0..j0 + SK, col0..col0 + SN) into one stage by the HALF threads of a
+// half, zeros past m. VEC: 16-byte chunks (m % 4 == 0, so a chunk is all in
+// or all out), 2 per thread; else one float per copy, 8 per thread.
+template <bool VEC>
+__device__ __forceinline__ void stage_w(WStage& st, const float* __restrict__ w, int m,
+                                        int col0, int j0, int t) {
+  if (VEC) {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= BN) continue;
+    for (int q = 0; q < SK * SN / 4 / HALF; ++q) {
+      const int e = t + HALF * q;
+      const int r = e / (SN / 4), c = e % (SN / 4) * 4;
+      const bool in = j0 + r < m && col0 + c < m;
+      cp_async16(&st.w[r][c], in ? w + (long long)(j0 + r) * m + col0 + c : w, in ? 16 : 0);
+    }
+  } else {
 #pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int c = col0 + tx + 16 * j;
-        gs[r * gstride + c] = c < m ? g[i][j] * zmask[c] : 0.0f;
-      }
+    for (int q = 0; q < SK * SN / HALF; ++q) {
+      const int e = t + HALF * q;
+      const int r = e / SN, c = e % SN;
+      const bool in = j0 + r < m && col0 + c < m;
+      cp_async4(&st.w[r][c], in ? w + (long long)(j0 + r) * m + col0 + c : w, in ? 4 : 0);
     }
   }
-  __syncthreads();
+  cp_async_commit();
+}
 
-  // 2. quad_r = sum over W column tiles k of rowsum((G W[:, k]) * G[:, k]).
-  float quad[RPT];
+// The HALF threads of half h (named barrier 1 + h) wait for each other.
+__device__ __forceinline__ void half_sync(int h) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(HALF) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// partial[k-tile, row] = sum over the k-tile's W columns k of (G[row, :]
+// W[:, k]) G[row, k], G = k(x, z) * zmask. Grid: one block per (row tile,
+// SCT W column tiles), 1-D; dynamic shared memory: the slab [SR][gstride],
+// gstride = the k-tiles times SN, plus 4.
+template <bool BF16, bool VEC>
+__global__ void __launch_bounds__(STHREADS)
+rls_score_partial_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                         const float* __restrict__ w, const float* __restrict__ zmask,
+                         float* __restrict__ partial, int n, int m, int d, int gstride, int fam,
+                         float s) {
+  extern __shared__ __align__(16) float dyn[];
+  float* gs = dyn;  // [SR][gstride]: the masked Gram slab
+  __shared__ __align__(16) Ring ring;
+  __shared__ float red[4][SR];
+  auto& xs = ring.b.xs;
+  const int tiles_c = gstride / SN;  // gstride - 4 is a multiple of SN
+  const int groups = (tiles_c + SCT - 1) / SCT;
+  const int row0 = blockIdx.x / groups * SR, ct0 = blockIdx.x % groups * SCT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lr = lane / 8, lc = lane % 8;
+
+  // 1. The slab, SN centers per pass, by all threads: warp (wr, wc) spans
+  //    rows 16 wr.. and columns 32 wc.., lane (lr, lc) a 4 x 4 register tile
+  //    of rows r0 + i and columns c0 + j. x (once, if d <= SDK) and z are
+  //    staged as stored, SDK features a stage (a stage's flat index is split
+  //    by a float reciprocal, exact below 2^12 elements); each thread
+  //    accumulates x . z and, from the same unrounded values, its rows'
+  //    (first pass) and columns' squared norms; bf16 rounds the x . z
+  //    operands only.
+  {
+    const int r0 = 16 * (warp / 4) + 4 * lr, c0 = 32 * (warp % 4) + 4 * lc;
+    float xn[4] = {};
+    for (int p0 = 0; p0 < tiles_c * SN; p0 += SN) {
+      float g[4][4] = {}, zn[4] = {}, zm[4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) quad[i] = 0.0f;
-  for (int k0 = 0; k0 < m; k0 += WK) {
-    float acc[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) acc[i][q] = 0.0f;
-    for (int j0 = 0; j0 < m; j0 += WJ) {
-#pragma unroll
-      for (int e0 = 0; e0 < WJ * WK; e0 += THREADS) {
-        const int e = e0 + tid;
-        const int jj = e / WK, c = e % WK;
-        float v = (j0 + jj < m && k0 + c < m) ? w[(long long)(j0 + jj) * m + k0 + c] : 0.0f;
-        ws[jj * WK + c] = bf16 ? round_bf16(v) : v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int jj = 0; jj < WJ; ++jj) {
-        float a[RPT], b[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float v = gs[(ty + 16 * i) * gstride + j0 + jj];
-          a[i] = bf16 ? round_bf16(v) : v;
+      for (int j = 0; j < 4; ++j) zm[j] = p0 + c0 + j < m ? zmask[p0 + c0 + j] : 0.0f;
+      for (int f0 = 0; f0 < d; f0 += SDK) {
+        const int fw = min(SDK, d - f0);
+        const float inv_fw = 1.0f / static_cast<float>(fw);
+        __syncthreads();  // the previous stage's readers are done
+        if (p0 == 0 || d > SDK) {  // with d <= SDK the first x stage serves every pass
+          for (int e = tid; e < SR * fw; e += STHREADS) {
+            const int r = __float2int_rz((e + 0.5f) * inv_fw), f = e - r * fw;
+            xs[f][r] = row0 + r < n ? x[(long long)(row0 + r) * d + f0 + f] : 0.0f;
+          }
         }
+        for (int e = tid; e < SN * fw; e += STHREADS) {
+          const int c = __float2int_rz((e + 0.5f) * inv_fw), f = e - c * fw;
+          ring.b.zs[f][c] = p0 + c < m ? z[(long long)(p0 + c) * d + f0 + f] : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int f = 0; f < fw; ++f) {
+          const float4 a4 = *reinterpret_cast<const float4*>(&xs[f][r0]);
+          const float4 b4 = *reinterpret_cast<const float4*>(&ring.b.zs[f][c0]);
+          float a[4] = {a4.x, a4.y, a4.z, a4.w}, b[4] = {b4.x, b4.y, b4.z, b4.w};
+          if (p0 == 0) {
 #pragma unroll
-        for (int q = 0; q < CPT; ++q) b[q] = ws[jj * WK + tx + 16 * q];
+            for (int i = 0; i < 4; ++i) xn[i] = fmaf(a[i], a[i], xn[i]);
+          }
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
+          for (int j = 0; j < 4; ++j) zn[j] = fmaf(b[j], b[j], zn[j]);
+          if (BF16) {
 #pragma unroll
-          for (int q = 0; q < CPT; ++q) acc[i][q] = fmaf(a[i], b[q], acc[i][q]);
+            for (int i = 0; i < 4; ++i) {
+              a[i] = round_bf16(a[i]);
+              b[i] = round_bf16(b[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(a[i], b[j], g[i][j]);
+        }
       }
-      __syncthreads();
+      tile_epilogue(fam, g, xn, zn, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = row0 + r0 + i < n;
+        *reinterpret_cast<float4*>(gs + (r0 + i) * gstride + p0 + c0) =
+            make_float4(in ? g[i][0] * zm[0] : 0.0f, in ? g[i][1] * zm[1] : 0.0f,
+                        in ? g[i][2] * zm[2] : 0.0f, in ? g[i][3] * zm[3] : 0.0f);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int c = k0 + tx + 16 * q;
-        if (c < m) quad[i] = fmaf(acc[i][q], gs[(ty + 16 * i) * gstride + c], quad[i]);
-      }
   }
+  __syncthreads();  // the slab is whole; the ring's x and z stages are free
 
-  // 3. The 16 lanes of a half-warp share ty: a fixed butterfly adds their
-  //    sums, then one lane writes the score.
+  // 2. acc = G[rows, :] W[:, k-tile], the depth split between the two halves
+  //    (half h: W row stages [h nt0, min(nt, (h + 1) nt0))), each with its own
+  //    ring and named barrier. In a half, warp hw and lane (lr, lc) hold rows
+  //    lr + 4 i and columns gc + j, gc = 32 hw + 4 lc: a G fragment load
+  //    reads 4 consecutive rows (disjoint banks, as gstride % 8 == 4), a W
+  //    fragment load 8 neighbouring float4s, one wavefront each: 12 LDS.128
+  //    per 128 FMAs.
+  const int h = warp / 4, t = tid % HALF, gc = 32 * (warp % 4) + 4 * lc;
+  const int nt = (m + SK - 1) / SK, nt0 = (nt + 1) / 2;
+  const int it0 = h * nt0, it1 = min(nt, it0 + nt0);
+  for (int ct = ct0; ct < min(tiles_c, ct0 + SCT); ++ct) {
+    const int col0 = ct * SN;
+    float acc[8][4] = {};
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float v = quad[i];
+    for (int q = 0; q < SSTAGES - 1; ++q) {  // steps it0 .. it0 + SSTAGES - 2 in flight
+      if (it0 + q < it1)
+        stage_w<VEC>(ring.st[h][q], w, m, col0, (it0 + q) * SK, t);
+      else
+        cp_async_commit();
+    }
+    for (int it = it0; it < it1; ++it) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(SSTAGES - 2) : "memory");  // step it landed
+      half_sync(h);  // ... for every thread of the half, which is also done with step it - 1
+      const int ahead = it + SSTAGES - 1;  // into the stage of step it - 1
+      if (ahead < it1)
+        stage_w<VEC>(ring.st[h][(ahead - it0) % SSTAGES], w, m, col0, ahead * SK, t);
+      else
+        cp_async_commit();
+      const WStage& st = ring.st[h][(it - it0) % SSTAGES];
+      const float* ga = gs + lr * gstride + it * SK;
 #pragma unroll
-    for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int r = row0 + ty + 16 * i;
-    if (tx == 0 && r < n) out[r] = (kdiag[r] - v) / lamn;
+      for (int kq = 0; kq < SK; kq += 4) {
+        float4 a4[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a4[i] = *reinterpret_cast<const float4*>(ga + 4 * i * gstride + kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 b4 = *reinterpret_cast<const float4*>(&st.w[kq + kk][gc]);
+          float a[8], b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = lane_of(a4[i], kk);
+          if (BF16) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) a[i] = round_bf16(a[i]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = round_bf16(b[j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // both halves are done with their rings
+
+    // 3. The second half's acc added to the first's (first + second), then
+    //    row r's share of this k-tile: the thread's 4 columns (G past m is 0),
+    //    a butterfly over the 8 lanes of the row, then the 4 warps in order.
+    if (h == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ring.acc[4 * i + j][t] = acc[i][j];
+    }
+    __syncthreads();
+    if (h == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = lr + 4 * i;
+        const float4 g4 = *reinterpret_cast<const float4*>(gs + r * gstride + col0 + gc);
+        float part = (acc[i][0] + ring.acc[4 * i][t]) * g4.x;
+        part = fmaf(acc[i][1] + ring.acc[4 * i + 1][t], g4.y, part);
+        part = fmaf(acc[i][2] + ring.acc[4 * i + 2][t], g4.z, part);
+        part = fmaf(acc[i][3] + ring.acc[4 * i + 3][t], g4.w, part);
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (lc == 0) red[warp][r] = part;
+      }
+    }
+    __syncthreads();
+    if (tid < SR && row0 + tid < n)
+      partial[(long long)ct * n + row0 + tid] =
+          ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
+    __syncthreads();  // red and the ring are free for the next column tile
   }
 }
+
+// out[i] = (K_ii - sum over tiles, in index order, of partial[tile, i]) / lamn,
+// K_ii the family's epilogue of 0 (distance families) or of |x_i|^2 (the
+// linear family), as families.diag_pre gives it.
+__global__ void rls_score_finish_kernel(const float* __restrict__ partial,
+                                        const float* __restrict__ x, float* __restrict__ out,
+                                        int n, int d, int n_tiles, int fam, float s, float lamn) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float pre = 0.0f;
+  if (fam == LINEAR) {
+    const float* xr = x + (long long)i * d;
+    for (int f = 0; f < d; ++f) pre = fmaf(xr[f], xr[f], pre);
+  }
+  float quad = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) quad += partial[(long long)t * n + i];
+  out[i] = (family_epilogue(fam, pre, s) - quad) / lamn;
+}
+
+template <bool BF16, bool VEC>
+void launch(const float* x, const float* z, const float* w, const float* zmask, float* partial,
+            int n, int m, int d, int fam, float s, cudaStream_t st) {
+  const int tiles_c = max(1, (m + SN - 1) / SN);
+  const int gstride = tiles_c * SN + 4;  // % 8 == 4: a fragment's 4 rows in disjoint banks
+  const int smem = SR * gstride * static_cast<int>(sizeof(float));
+  const auto kernel = rls_score_partial_kernel<BF16, VEC>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (n + SR - 1) / SR * ((tiles_c + SCT - 1) / SCT);
+  kernel<<<blocks, STHREADS, smem, st>>>(x, z, w, zmask, partial, n, m, d, gstride, fam, s);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // n >= 1, 0 <= m <= 1024 (the wrapper refuses larger center buffers: the
 // slab would not fit in shared memory).
-void repro::launch_rls_score(const float* x, const float* z, const float* w,
-                             const float* zmask, const float* kdiag, float* out, int n, int m,
-                             int d, int fam, float s, float lamn, bool bf16, cudaStream_t st) {
-  const int mpad = (m + TILE - 1) / TILE * TILE;
-  const int smem = static_cast<int>((BN * (mpad + GPAD) + WJ * WK) * sizeof(float));
-  cudaFuncSetAttribute(rls_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  rls_score_kernel<<<(n + BN - 1) / BN, THREADS, smem, st>>>(x, z, w, zmask, kdiag, out, n, m,
-                                                             mpad, d, fam, s, lamn, bf16);
+void repro::launch_rls_score_partial(const float* x, const float* z, const float* w,
+                                     const float* zmask, float* partial, int n, int m, int d,
+                                     int fam, float s, bool bf16, cudaStream_t st) {
+  const bool vec = m % 4 == 0 && aligned16(w);
+  if (bf16)
+    vec ? launch<true, true>(x, z, w, zmask, partial, n, m, d, fam, s, st)
+        : launch<true, false>(x, z, w, zmask, partial, n, m, d, fam, s, st);
+  else
+    vec ? launch<false, true>(x, z, w, zmask, partial, n, m, d, fam, s, st)
+        : launch<false, false>(x, z, w, zmask, partial, n, m, d, fam, s, st);
+}
+
+void repro::launch_rls_score_finish(const float* partial, const float* x, float* out, int n,
+                                    int d, int n_tiles, int fam, float s, float lamn,
+                                    cudaStream_t st) {
+  const int threads = 256;
+  rls_score_finish_kernel<<<(n + threads - 1) / threads, threads, 0, st>>>(
+      partial, x, out, n, d, n_tiles, fam, s, lamn);
 }

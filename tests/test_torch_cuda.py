@@ -154,6 +154,52 @@ def test_masked_fit_is_bit_repeatable_and_matches_torch_backend(dev):
     _close(pred, want, 1e-3 * float(want.abs().max()))
 
 
+# At d = 18 and k = 1, M = 7 and 8 961 take the cluster route with one block
+# per cluster and with 8 blocks whose last holds one center, 12 288 is the
+# route's cap (8 blocks of 1 536), 12 289 takes the two-stage route.
+ROUTE_MS = {7: ("cluster", 1), 8961: ("cluster", 8), 12_288: ("cluster", 8),
+            12_289: ("two-stage", 0)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("m", sorted(ROUTE_MS))
+def test_matvec_routes_match_plain(dev, kind, bf16, m):
+    x, z, v, _ = _inputs(dev, 3001, m, 18, 5, seed=15)
+    plan = fo.matvec_plan(x.shape[0], m, 18, 1)
+    assert (plan.route, plan.cluster) == ROUTE_MS[m]
+    vec_mask = _mask(dev, x.shape[0], 1, "vec", seed=16)
+    panel_mask = _mask(dev, x.shape[0], 5, "k3", seed=17)
+    kw = dict(kind=kind, bf16=bf16)
+    rel = 3e-2 if bf16 else 1e-4
+    kernels.reset_launch_counts()
+    for out, ref in ((fo.falkon_matvec(x, z, v[:, 0], 3.0, **kw),
+                      fo.falkon_matvec_reference(x, z, v[:, 0], 3.0, **kw)),
+                     (fo.falkon_matvec(x, z, v[:, 0], 3.0, mask=vec_mask, **kw),
+                      fo.falkon_matvec_masked_reference(x, z, v[:, 0], vec_mask, 3.0, **kw)),
+                     (fo.falkon_matvec(x, z, v, 3.0, mask=panel_mask, **kw),
+                      fo.falkon_matvec_masked_reference(x, z, v, panel_mask, 3.0, **kw))):
+        _close(out, ref, rel * float(ref.abs().max()))
+    counts = kernels.launch_counts()
+    assert (counts["falkon_matvec"], counts["falkon_matvec_masked"]) == (1, 2)
+
+
+@pytest.mark.parametrize("m,k,route", [(10_000, 1, "cluster"), (2978, 5, "cluster"),
+                                       (12_289, 1, "two-stage"), (10_000, 5, "two-stage")])
+def test_matvec_routes_keep_the_mask_exact_and_repeat(dev, m, k, route):
+    # an all-ones mask gives K2 bit for bit on either route, zeros give 0,
+    # and a call repeats itself bit for bit (fixed-order sums, no atomics)
+    x, z, v, _ = _inputs(dev, 20_011, m, 18, k, seed=17)
+    assert fo.matvec_plan(x.shape[0], m, 18, k).route == route
+    ones = torch.ones((x.shape[0], k), device=dev)
+    plain = fo.falkon_matvec(x, z, v)
+    torch.cuda.synchronize()
+    assert torch.equal(fo.falkon_matvec(x, z, v, mask=ones), plain)
+    assert torch.equal(fo.falkon_matvec(x, z, v), plain)
+    assert torch.count_nonzero(fo.falkon_matvec(x, z, v, mask=torch.zeros_like(ones))) == 0
+    assert torch.count_nonzero(fo.falkon_matvec(x[:0], z, v)) == 0  # n = 0 gives zeros
+
+
 def test_sweep_and_classifier_run_on_the_card_by_default(dev):
     from repro_torch.api import FalkonClassifier, FitConfig, KFoldSweep, UniformSampler
 
@@ -199,6 +245,21 @@ def test_rls_score_kernel_matches_plain(dev, kind, bf16, shape):
     out = ro.rls_score(x, z, w, mask, lamn, 2.5, kind=kind, bf16=bf16)
     ref = ro.rls_score_reference(x, z, w, mask, lamn, 2.5, kind=kind, bf16=bf16)
     assert out.shape == ref.shape == (r,) and bool(torch.all(torch.isfinite(out)))
+    if bf16:
+        _close(out, ref, 3e-2 * float(ref.abs().max()))
+    else:
+        torch.testing.assert_close(out, ref, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("m", [1, 63, 640, 1024])
+def test_rls_score_kernel_matches_plain_at_ragged_rows(dev, kind, bf16, m):
+    # 1 537 rows: a partial 32-row tile; M across one to eight 128-column tiles
+    _, x, z, w, mask, _, lamn = _score_inputs(dev, 1537, m, 18, kind, seed=18)
+    out = ro.rls_score(x, z, w, mask, lamn, 2.5, kind=kind, bf16=bf16)
+    ref = ro.rls_score_reference(x, z, w, mask, lamn, 2.5, kind=kind, bf16=bf16)
+    assert out.shape == ref.shape == (1537,) and bool(torch.all(torch.isfinite(out)))
     if bf16:
         _close(out, ref, 3e-2 * float(ref.abs().max()))
     else:

@@ -163,7 +163,7 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
     from repro_torch.kernels import rls_score_ops
 
     worst = chip_smoke.kernel_parity("cpu", n=301, m=40, d=18, score_ms=(1, 40, 70),
-                                     quad_ms=(40, 65))
+                                     quad_ms=(40, 65), route_ms=(50, 70))
     assert set(worst) == set(chip_smoke.KERNELS)
     res = chip_smoke.end_to_end("cpu", n_train=1536, n_test=512, m=120, iters=10,
                                 refit_rows=1024, referee_rows=256)

@@ -264,8 +264,10 @@ def test_every_launcher_is_defined_against_its_declaration():
     # name (a drifted signature then fails to compile) and include no
     # PyTorch header; only binding.cpp does.
     names = _launchers()
-    assert names == ["launch_gram", "launch_knm_matvec", "launch_knm_matvec_masked",
-                     "launch_knm_t_partial", "launch_reduce_partials", "launch_rls_score",
+    assert names == ["launch_gram", "launch_falkon_matvec_fused", "launch_row_norms",
+                     "launch_reduce_partials_blocked", "launch_knm_matvec",
+                     "launch_knm_matvec_masked", "launch_knm_t_partial", "launch_reduce_partials",
+                     "launch_rls_score_partial", "launch_rls_score_finish",
                      "launch_quadform_partial", "launch_flash_attention", "launch_ssd"]
     pkg = build.CSRC.parent
     cu = {s: (pkg / s).read_text() for s in build.SOURCES if s.endswith(".cu")}
@@ -287,23 +289,138 @@ def test_binding_checks_every_launch():
         stmt_end = text.index(";", end)
         after = text[stmt_end + 1:].lstrip()
         assert after.startswith("C10_CUDA_KERNEL_LAUNCH_CHECK();"), text[end - 40:stmt_end + 60]
-    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec", "falkon_matvec_masked",
-                 "rls_score", "quadform", "flash_attention", "ssd"):
+    for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec_fused", "falkon_matvec",
+                 "falkon_matvec_masked", "rls_score", "quadform", "flash_attention", "ssd"):
         assert f'm.def("{name}", &{name}' in text
-    # K7's binding checks its mask and runs three launches, each checked
+    # K7's two-stage binding checks its mask and runs three launches, each checked
     body = text[text.index("void falkon_matvec_masked("):text.index("// K5:")]
     assert 'check(mask, "mask")' in body and "TORCH_CHECK(mask.dim() == 2" in body
     assert body.count("repro::launch_") == 1 and "knm_t_launches(" in body
+    # the cluster route (K2, or K7 with a mask) checks the mask and the plan,
+    # then runs the fused kernel and the fixed-order sum of its row chunks
+    body = text[text.index("void falkon_matvec_fused("):text.index("// K2 on the two-stage route")]
+    assert 'check(*mask, "mask")' in body and "TORCH_CHECK(mask->dim() == 2" in body
+    assert "falkon_fused_smem_floats(" in body and "232448" in body
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_row_norms", "repro::launch_falkon_matvec_fused",
+        "repro::launch_reduce_partials_blocked"]
+    # K5: the fused kernel, then the ordered sum of its column tiles and the epilogue
+    body = text[text.index("void rls_score("):text.index("// K6:")]
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_rls_score_partial", "repro::launch_rls_score_finish"]
 
 
 def test_masked_stage_one_is_the_templated_k4_kernel():
-    # K7's mask multiply lives in the hand-written kernel: stage 1 is one
-    # kernel templated on MASKED, instantiated unmasked for K2/K4.
+    # K7's mask multiply lives in the hand-written kernels. On the cluster
+    # route one fused kernel templated on MASKED serves K2 (false) and K7
+    # (true), the mask multiplying T between the two contractions; on the
+    # two-stage route stage 1 is K4's kernel templated on MASKED, instantiated
+    # unmasked for K2/K4.
     text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    fused = _kernel_body(text, "falkon_matvec_fused_kernel")
+    assert "template <bool MASKED, int NC>\n__global__" in text
+    assert "if constexpr (MASKED) t *= mcur;" in fused  # T times the tile's mask rows
+    assert fused.count("mask[") == 1  # the mask's one read, a tile ahead of step E
+    launcher = text[text.index("void repro::launch_falkon_matvec_fused("):]
+    assert "launch_fused_kc<true>(" in launcher and "launch_fused_kc<false>(" in launcher
+    assert "mask != nullptr" in launcher
     assert "template <bool MASKED>" in text
     assert "knm_matvec_kernel<false><<<" in text and "knm_matvec_kernel<true><<<" in text
     assert "MASKED ? acc[q] * mask[o] : acc[q]" in text
 
+
+def test_fused_matvec_builds_each_gram_value_once_per_tile():
+    # Steps C-F of the fused kernel: one register-tile build per pass, the
+    # cluster's partials read through distributed shared memory after one
+    # split cluster barrier, the slice's G^T T from shared memory. No float
+    # atomics anywhere in the file.
+    text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    fused = _kernel_body(text, "falkon_matvec_fused_kernel")
+    assert fused.count("tile_epilogue(") == 1 and "gram_tile(" not in fused
+    assert "map_shared_rank(" in fused and "cluster_arrive();" in fused
+    assert "cluster_wait();" in fused and "cluster.sync();" in fused
+    assert "barrier.cluster.arrive.release" in text and "barrier.cluster.wait.acquire" in text
+    assert "atomicAdd" not in text and ".tf32" not in text
+    assert "cudaOccupancyMaxActiveClusters" in text
+    assert "cudaLaunchAttributeClusterDimension" in text
+
+
+def _constant(text, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_matvec_plan_mirrors_the_kernel_layout():
+    # The plan's constants are the kernel's, and its shared-memory count is
+    # fused_layout's total (term by term: a slice column's Gram column, z row,
+    # norm, V row and accumulator; two tiles' x feature-major and their norms;
+    # the T shares of 16 warps, the partials of up to 8 blocks double-buffered,
+    # and T).
+    text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    assert _constant(text, "FR") == fo.FUSED_ROWS
+    assert _constant(text, "FPASS") == fo.FUSED_SLICE_STEP
+    nj = _constant(text, "FNJ")
+    assert fo.FUSED_SLICE_STEP // (8 * nj) == fo.FUSED_WARPS  # FWARPS
+    assert _constant(text, "FDMAX") == fo.FUSED_DMAX
+    layout = text[text.index("inline FusedLayout fused_layout("):]
+    layout = layout[:layout.index("return l;")]
+    assert "l.total = l.tfull + FR * nc;" in layout
+    for sw, d, nc in ((256, 1, 1), (1280, 18, 1), (768, 18, 8), (1024, 64, 4)):
+        want = (16 * sw + d * sw + sw + nc * sw + nc * sw + 2 * d * 16 + 2 * 16
+                + 16 * 16 * nc + 2 * 8 * 16 * nc + 16 * nc)
+        assert fo.fused_smem_floats(sw, d, nc) == want
+
+
+@pytest.mark.parametrize("n,m,d,k", [(10 ** 6, 10 ** 4, 18, 1), (10 ** 6, 2978, 18, 5),
+                                     (70_001, 1_000, 18, 40), (0, 5, 3, 1), (1, 1, 1, 1),
+                                     (65_536, 2_048, 18, 4), (10 ** 6, 12_288, 18, 1)])
+def test_matvec_plan_takes_the_cluster_route_within_its_reach(n, m, d, k):
+    plan = fo.matvec_plan(n, m, d, k)
+    assert plan == fo.matvec_plan(n, m, d, k)  # a pure function of the shape
+    assert plan.route == "cluster" and plan.cluster in fo.FUSED_CLUSTERS
+    assert plan.kc in fo.FUSED_KC and plan.kc >= min(k, 8)
+    sw = plan.slice_cols
+    assert sw % fo.FUSED_SLICE_STEP == 0 and (plan.cluster - 1) * sw < m <= plan.cluster * sw
+    assert 4 * fo.fused_smem_floats(sw, d, plan.kc) <= fo.SMEM_BYTES
+    # the fewest blocks per cluster that fit
+    smaller = [c for c in fo.FUSED_CLUSTERS if c < plan.cluster]
+    for c in smaller:
+        s2 = fo.round_up(-(-m // c), fo.FUSED_SLICE_STEP)
+        assert (c - 1) * s2 >= m or 4 * fo.fused_smem_floats(s2, d, plan.kc) > fo.SMEM_BYTES
+    # row chunks of whole 16-row tiles cover every row once, at most 1024 of them
+    assert plan.chunk_rows % fo.FUSED_ROWS == 0 and 1 <= plan.n_chunks <= fo.FUSED_MAX_CHUNKS
+    assert (plan.n_chunks - 1) * plan.chunk_rows < max(n, 1) <= plan.n_chunks * plan.chunk_rows
+
+
+def test_matvec_plan_main_path_shapes():
+    # K2 on the uniform SUSY-scale fit and K7 on the CV sweep's BLESS centers
+    assert fo.matvec_plan(10 ** 6, 10 ** 4, 18, 1)[:4] == ("cluster", 8, 1280, 1)
+    assert fo.matvec_plan(10 ** 6, 2978, 18, 5)[:4] == ("cluster", 4, 768, 5)
+
+
+@pytest.mark.parametrize("n,m,d,k", [(10 ** 6, 12_289, 18, 1), (10 ** 6, 16_384, 18, 1),
+                                     (10 ** 6, 10 ** 5, 18, 5), (5_000, 100, 65, 1),
+                                     (100, 8_000, 64, 40)])
+def test_matvec_plan_takes_the_two_stage_route_above_the_cap(n, m, d, k):
+    plan = fo.matvec_plan(n, m, d, k)
+    assert plan.route == "two-stage" and plan == fo.matvec_plan(n, m, d, k)
+    assert (plan.n_chunks, plan.chunk_rows) == fo.row_chunks(n, m)
+
+
+def test_rls_score_tile_matches_the_wrapper_and_bf16_is_a_template_parameter():
+    # K5's partial buffer is (max(1, ceil(M / TILE)), R): the wrapper's TILE
+    # must be the kernel's W column tile. The G W loop of the fp32 kernel
+    # carries no bf16 branch; the slab is built in registers, not by gram_tile.
+    from repro_torch.kernels import rls_score_ops as ro
+
+    text = (build.CSRC.parent / "rls_score" / "rls_score.cu").read_text()
+    assert _constant(text, "SN") == ro.TILE
+    assert "template <bool BF16, bool VEC>" in text
+    kernel = _kernel_body(text, "rls_score_partial_kernel")
+    signature = kernel[:kernel.index("{")]
+    assert "bf16" not in signature.lower() and "if (BF16)" in kernel and "if (bf16)" not in kernel
+    assert "tile_epilogue(fam, g," in kernel and "gram_tile(" not in kernel
+    assert "cp.async.wait_group %0" in kernel and "atomicAdd" not in text
+    assert "fmaf(a[i], b[j], acc[i][j])" in kernel
 
 def _kernel_body(text, name):
     """The text of the __global__ function `name`, from its name to its end."""

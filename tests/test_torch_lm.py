@@ -34,7 +34,7 @@ from repro.models import layers as jlayers
 from repro.models import mamba2 as jmamba
 from repro.models import moe as jmoe
 from repro.serving import engine as jengine
-from repro_torch import configs, kernels
+from repro_torch import configs, interop, kernels
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels import flash_attention_ops as fa
 from repro_torch.kernels import ssd_ops as so
@@ -322,16 +322,63 @@ def _tokens(cfg, b, s, seed=1):
     return _rng(seed).integers(0, cfg.vocab_size, (b, s))
 
 
+#: smoke head counts that keep a configuration's grouping under the reference's
+#: padding: qwen2-vl's smoke 4 q over 2 kv heads would regroup (padded to 16).
+SMOKE_HEADS = {"qwen2-vl-2b": dict(n_heads=16)}
+
+
+def _batch(cfg, b, s, seed=1):
+    """The reference test's batch (tests/test_models.py), from numpy: tokens or
+    frames, and the vision model's M-RoPE positions and patch embeddings."""
+    r = _rng(seed)
+    bat = ({"tokens": r.integers(0, cfg.vocab_size, (b, s))} if cfg.embed_inputs else
+           {"frames": r.standard_normal((b, s, cfg.d_model)).astype(np.float32)})
+    if cfg.pos == "mrope":
+        p = np.broadcast_to(np.arange(s), (b, s))
+        bat["mrope_positions"] = np.stack([p, p, p], axis=1)
+    if cfg.extra_image_tokens:
+        bat["pixel_embeds"] = r.standard_normal(
+            (b, cfg.extra_image_tokens, cfg.d_model)).astype(np.float32)
+    return bat
+
+
 @pytest.mark.parametrize("name,layers_", [("jamba-v0.1-52b", None), ("jamba-v0.1-52b", 16),
-                                          ("mamba2-370m", None), ("phi3-mini-3.8b", None)])
+                                          ("mamba2-370m", None), ("phi3-mini-3.8b", None),
+                                          ("gemma-2b", None), ("granite-moe-3b-a800m", None),
+                                          ("llama4-scout-17b-a16e", None), ("minicpm-2b", None),
+                                          ("qwen3-32b", None), ("hubert-xlarge", None),
+                                          ("qwen2-vl-2b", None)])
 def test_smoke_forward_and_prefill_logits_match_reference(name, layers_):
-    jcfg, params, tcfg, lm = _carried(name, layers_)
-    toks = _tokens(jcfg, 2, 32)
-    want = jax.jit(jforward, static_argnums=1)(params, jcfg, {"tokens": jnp.asarray(toks)})
-    _close(lm({"tokens": torch.from_numpy(toks)}), want, 2e-4)
+    jcfg, params, tcfg, lm = _carried(name, layers_, **SMOKE_HEADS.get(name, {}))
+    bat = _batch(jcfg, 2, 32)
+    want = jax.jit(jforward, static_argnums=1)(params, jcfg,
+                                               {k: jnp.asarray(v) for k, v in bat.items()})
+    tbat = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in bat.items()}
+    _close(lm(tbat), want, 2e-4)
     # the reference's prefill_logits is logits_fn of the forward's last position
-    _close(prefill_logits(lm, {"tokens": torch.from_numpy(toks)}),
-           logits_fn(params, jcfg, want[:, -1]), 2e-4)
+    _close(prefill_logits(lm, tbat), logits_fn(params, jcfg, want[:, -1]), 2e-4)
+
+
+def test_padded_head_guard_refuses_exactly_the_regrouping_configs():
+    # every full configuration against a brute-force head map: the reference
+    # replicates each of its kv heads over hq // hkv padded q heads
+    # (attention._repeat_kv), the port each of its over n_heads // n_kv_heads
+    regrouping = set()
+    for name in configs.list_archs():
+        cfg = configs.get_config(name)
+        hp = cfg.padded_heads(16)
+        hkv = hp if cfg.n_kv_heads == cfg.n_heads else cfg.n_kv_heads
+        ref_map = np.repeat(np.arange(hkv), hp // hkv)[:cfg.n_heads]
+        port_map = np.repeat(np.arange(cfg.n_kv_heads), cfg.n_heads // cfg.n_kv_heads)
+        same = np.array_equal(ref_map, port_map)
+        assert interop.regroups(cfg, hp) is not same, name
+        if not same:
+            regrouping.add(name)
+            with pytest.raises(ValueError, match="regroups"):
+                lm_params_from_numpy(cfg, {})
+    assert regrouping == {"granite-moe-3b-a800m", "llama4-scout-17b-a16e", "qwen2-vl-2b"}
+    gemma = configs.get_config("gemma-2b")
+    assert gemma.n_kv_heads == 1 and gemma.padded_heads(16) != gemma.n_heads
 
 
 def test_interop_unstacks_groups_and_strips_padded_heads():
