@@ -53,11 +53,14 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 predictive-variance shape (10^5 x 10^4) and at the largest
                 ladder level above 1 024 centers, if there is one, and K7 at
                 the sweep's shape (10^6 rows, the BLESS M, phase 7's 5-fold
-                mask); K2's and K7's lines name the route matvec_plan chose.
-                Logged beside them, not gated: K5 against K1 + K6 at
-                M = 1 024 (the MAX_FUSED_M crossover) on K5's rows, and K2 on
-                the two-stage route at M = 16 384 (above the cluster route's
-                cap).
+                mask); K2's and K7's lines name the route matvec_plan chose,
+                K3's the route of knm_t_plan. K3 also at the sweep's shape
+                (10^6 rows, the BLESS M, its 5-column right-hand side), timed
+                and logged beside the record. Logged beside them, not gated:
+                K5 against K1 + K6 at M = 1 024 (the MAX_FUSED_M crossover)
+                on K5's rows, and K2 on the two-stage route at M = 16 384
+                (above the cluster route's cap; its second stage is K3's
+                register route).
   7. cv         exact k-fold CV through the front door on the same data and
                 phase 5's BLESS center set: KFoldSweep(folds=5, lams=(1e-5,
                 1e-6, 1e-7), iters=20), counts reset just before the sweep and
@@ -83,9 +86,10 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 groups 1, 4 and 8, S in {1, 1 000, 2 053}, D in {17, 32, 80,
                 128} (D = 17 and S = 1 run the tensor-core kernel's padding),
                 and Jamba's layer (B = 4, Hq = 32, Hkv = 8, S = 2 048,
-                D = 128); K9 at S not a multiple of the chunk and Jamba's
-                layer (B = 4, S = 2 048, H = 128, P = 64, N = 16), y and the
-                final state.
+                D = 128); K9 at S not a multiple of the chunk, at S = 4 100
+                (the state carried over 65 chunks, H = 12 not a multiple of
+                the 8-head scan group) and Jamba's layer (B = 4, S = 2 048,
+                H = 128, P = 64, N = 16), y and the final state.
  10. decode     jamba-v0.1-52b at full width cut to 8 layers (one period
                 group: the 32 layers' 104 GB in bf16 exceed the card), fp32,
                 capacity_factor 16 (no drops), random weights from --seed:
@@ -102,7 +106,9 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 (taken from the config) in the model's dtype: parity, and
                 times beside the bound, the plain version and (K8)
                 scaled_dot_product_attention; K9 also at the wrapper's
-                default chunk (128) beside the model's (64).
+                default chunk (128) beside the model's (64), each beside the
+                one-pass bound and its design's bound (the chunk states it
+                writes and reads, the second read of x, B and dt).
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -900,9 +906,10 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
     largest ladder level with at most 1 024 centers, K6 contracts the test
     rows' Gram block against W at M = 10^4 (the predictive variance), K7 runs
     on the training rows, the BLESS centers and the sweep's (n, folds) mask
-    with an (M, folds) panel, and "quadform@ladder" is K6 at the largest
-    ladder level above 1 024 centers (timed and logged, not part of the
-    kernels record)."""
+    with an (M, folds) panel; "knm_t@cv" is K3 on the training rows, the
+    BLESS centers and the sweep's (n, folds) right-hand sides, and
+    "quadform@ladder" K6 at the largest ladder level above 1 024 centers
+    (both timed and logged, not part of the kernels record)."""
     from repro_torch.core import CudaBackend, make_kernel
     from repro_torch.kernels import falkon_matvec_ops as fo
     from repro_torch.kernels import gram_ops as go
@@ -926,7 +933,10 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
     mask = sweep_mask(n, folds, seed, x.device)
     vb = torch.randn((zb.shape[0], folds), generator=torch.Generator(device=x.device)
                      .manual_seed(seed), device=x.device)
-    extra = []
+    y_cv = y[:, None] * mask  # the sweep's right-hand sides: one column per fold
+    extra = [("knm_t@cv", n, zb.shape[0], d, folds, lambda: fo.knm_t(x, zb, y_cv, sigma),
+              lambda: fo.knm_t_reference(x, zb, y_cv, sigma),
+              lambda: _library_call("knm_t", x, zb, y_cv, s))]
     if bless_t["k6_ladder"] is not None:
         xl, zl, ml, rl, _ = bless_t["k6_ladder"]
         mk6, wk6 = inverse(kern, zl, ml, rl)
@@ -987,7 +997,8 @@ def main_path_parity(calls) -> dict:
 
 def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
     """CUDA-event times of each kernel, its plain version and the yardstick;
-    K2's and K7's rows name the route ``matvec_plan`` gave them."""
+    K2's and K7's rows name the route ``matvec_plan`` gave them, K3's that of
+    ``knm_t_plan``."""
     from repro_torch.kernels import falkon_matvec_ops as fo
 
     times = {}
@@ -1001,6 +1012,12 @@ def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
         elif name == "rls_score":
             times[name]["design"] = ("on-chip Gram slab for two W column tiles, G W in 8x4 "
                                      "register tiles, depth split over two warp groups")
+        elif name.startswith("knm_t"):
+            plan = fo.knm_t_plan(n, m, d, k)
+            times[name]["route"] = plan.route
+            times[name]["design"] = (
+                f"G in registers, {plan.slice_cols}-center slices, {plan.n_chunks} row chunks"
+                if plan.route == "register" else "shared 64x64 gram_tile")
         elif name.startswith("falkon_matvec"):
             plan = fo.matvec_plan(n, m, d, k)
             times[name]["route"] = plan.route
@@ -1016,7 +1033,7 @@ def crossovers(device, times: dict, *, sigma: float = 4.0, seed: int = 0, d: int
     """Two times beside phase 6's, logged and not gated: K5 against K1 + K6 at
     M = MAX_FUSED_M on K5's main-path rows (where CudaBackend switches from
     the one to the other), and K2 on the two-stage route at an M above the
-    cluster route's cap."""
+    cluster route's cap (its second stage K3 by ``knm_t_plan``)."""
     from repro_torch.kernels import falkon_matvec_ops as fo
     from repro_torch.kernels import gram_ops as go
     from repro_torch.kernels import quadform_ops as qo
@@ -1038,6 +1055,7 @@ def crossovers(device, times: dict, *, sigma: float = 4.0, seed: int = 0, d: int
     plan = fo.matvec_plan(n, m, d, 1)
     b_ms, b_by = bound("falkon_matvec", n, m, d, 1)
     out["falkon_matvec_above_cap"] = {"shape": [n, m, d, 1], "route": plan.route,
+                                      "stage2_route": fo.knm_t_plan(n, m, d, 1).route,
                                       "ms": _cuda_ms(lambda: fo.falkon_matvec(x, z, v, sigma), 2),
                                       "bound_ms": b_ms, "bound_by": b_by}
     del x, z, v
@@ -1244,9 +1262,12 @@ def classify(device, t: dict, center_set, bless_test_error: float, *, lam: float
 ATTN_CASES = [(1, 8, 8, 1000, 32, True), (1, 8, 2, 2053, 80, True), (1, 8, 1, 1000, 128, False),
               (2, 4, 1, 2053, 32, False), (4, 32, 8, 2048, 128, True), (1, 8, 2, 1000, 17, True),
               (2, 8, 8, 1, 128, True)]
-#: K9 parity cases (B, S, H, P, N, chunk): S not a multiple of the chunk, and
-#: Jamba's Mamba layer at 4 prompts of 2 048 tokens with the model's chunk.
-SSD_CASES = [(1, 1000, 3, 64, 16, 64), (2, 2053, 4, 32, 8, 128), (4, 2048, 128, 64, 16, 64)]
+#: K9 parity cases (B, S, H, P, N, chunk): S not a multiple of the chunk, a
+#: state carried over 65 chunks with H not a multiple of the 8-head scan
+#: group, and Jamba's Mamba layer at 4 prompts of 2 048 tokens with the
+#: model's chunk.
+SSD_CASES = [(1, 1000, 3, 64, 16, 64), (2, 2053, 4, 32, 8, 128), (1, 4100, 12, 64, 16, 64),
+             (4, 2048, 128, 64, 16, 64)]
 
 
 def lm_config(*, n_layers: int = 8, **overrides):
@@ -1418,8 +1439,13 @@ def attention_bound(b, hq, hkv, s, d, causal, itemsize, *,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ssd_bound(b, s, h, p, n, chunk, itemsize, *,
-              tensor_cores: bool | None = None) -> tuple[float, str]:
+def ssd_states_bytes(b, s, h, p, n, chunk) -> int:
+    """Bytes of K9's chunk states, (B, ceil(S / chunk), H, P, N) fp32."""
+    return 4 * b * -(-s // chunk) * h * p * n
+
+
+def ssd_bound(b, s, h, p, n, chunk, itemsize, *, tensor_cores: bool | None = None,
+              design: bool = False) -> tuple[float, str]:
     """(least ms, bound) for K9 at ``chunk``: x, B, C read and y written
     once in their dtype (``itemsize``), dt read and the state written once
     in fp32. Contractions per chunk of Q rows: C B^T once per batch row (2 N
@@ -1427,10 +1453,16 @@ def ssd_bound(b, s, h, p, n, chunk, itemsize, *,
     (2 P N per row each). Elementwise per head: L and C B^T * L (3 per
     pair), the decays of y_off and of dt x (2 P per row), the state's decay
     and sum (2 P N). Contractions over the bf16 tensor-core peak with bf16 operands
-    (``tensor_cores`` overrides), else over the fp32 peak."""
+    (``tensor_cores`` overrides), else over the fp32 peak. ``design`` adds
+    the bytes ssd.cu's three launches move beyond one pass: the chunk states
+    written, read, rewritten and read (4 x ``ssd_states_bytes``), their
+    decays written and read, and x, B and dt read a second time."""
     if tensor_cores is None:
         tensor_cores = itemsize == 2
     nbytes = itemsize * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    if design:
+        nbytes += (4 * ssd_states_bytes(b, s, h, p, n, chunk) + 2 * 4 * b * -(-s // chunk) * h
+                   + itemsize * (b * s * h * p + b * s * n) + 4 * b * s * h)
     contractions = elementwise = 0
     for c0 in range(0, s, chunk):
         q = min(chunk, s - c0)
@@ -1537,7 +1569,8 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
     ``ssd_shape`` (B, S, H, P, N) and ``chunk``, on phase 9's inputs in
     ``dtype``: parity with the plain version (phase 9's tolerances) and, if
     ``timed``, CUDA-event times of kernel, plain version and library call
-    (SDPA for K8; none for K9) beside the bound. K9 is also checked and
+    (SDPA for K8; none for K9) beside the bound (K9: the one-pass bound and
+    its design's, which counts the chunk states). K9 is also checked and
     timed at the wrapper's ``default_chunk``."""
     def ms(fn, r):
         return _cuda_ms(fn, r) if timed else None
@@ -1585,6 +1618,7 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
             bad.append(f"ssd/chunk{c}: y {ey:.3e} (tol {stol * sy:.3e}), state {es:.3e} "
                        f"(tol {stol * ss:.3e})")
         b_ms, b_by = ssd_bound(bsz, sl, h, p, n, c, args[0].element_size())
+        d_ms, d_by = ssd_bound(bsz, sl, h, p, n, c, args[0].element_size(), design=True)
         out["ssd" if c == chunk else f"ssd_chunk{c}"] = {
             "shape": list(ssd_shape), "chunk": c, "dtype": str(dtype)[6:],
             "max_abs_err": max(ey, es), "y_err": ey, "y_tol": stol * sy, "state_err": es,
@@ -1592,7 +1626,9 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
             "plain_ms": ms(lambda: so.ssd_reference(*args, chunk=c), plain_repeats),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
             "bound_fp32_ms": ssd_bound(bsz, sl, h, p, n, c, args[0].element_size(),
-                                       tensor_cores=False)[0]}
+                                       tensor_cores=False)[0],
+            "design_bound_ms": d_ms, "design_bound_by": d_by,
+            "states_bytes": ssd_states_bytes(bsz, sl, h, p, n, c)}
         if c == chunk == default_chunk:
             break
     for name, t in out.items():

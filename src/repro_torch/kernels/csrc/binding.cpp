@@ -32,18 +32,46 @@ void check_act(const at::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-// K_nM^T y through its two launches; n may be 0 (the chunks then sum to 0).
+// K_nM^T y through its launches, by the route of falkon_matvec/ops.py's
+// knm_t_plan: kc > 0 the register route (x's row norms into xnorm (n,),
+// knm_t_reg in column chunks of kc, the chunks added in groups of 32); kc 0
+// the tiled route (d above 32). partial is (n_chunks, m, k) scratch with
+// n_chunks * chunk_rows >= n. n may be 0 (the chunks then sum to 0).
 void knm_t_launches(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y,
-                    at::Tensor& partial, at::Tensor& out, int64_t chunk_rows, int64_t fam,
-                    double s, bool bf16, cudaStream_t st) {
-  const int m = dim(z, 0), k = dim(y, 1);
-  repro::launch_knm_t_partial(x.data_ptr<float>(), z.data_ptr<float>(), y.data_ptr<float>(),
-                              partial.data_ptr<float>(), dim(x, 0), m, dim(x, 1), k,
-                              dim(partial, 0), static_cast<int>(chunk_rows),
-                              static_cast<int>(fam), static_cast<float>(s), bf16, st);
+                    at::Tensor& xnorm, at::Tensor& partial, at::Tensor& out, int64_t kc,
+                    int64_t chunk_rows, int64_t fam, double s, bool bf16, cudaStream_t st) {
+  const int n = dim(x, 0), m = dim(z, 0), d = dim(x, 1), k = dim(y, 1);
+  TORCH_CHECK(partial.dim() == 3 && partial.size(0) * chunk_rows >= n && partial.size(1) == m &&
+                  partial.size(2) == k && out.size(0) == m && out.size(1) == k,
+              "partial must be (n_chunks, m, k) with n_chunks * chunk_rows >= n");
+  if (kc == 0) {
+    repro::launch_knm_t_partial(x.data_ptr<float>(), z.data_ptr<float>(), y.data_ptr<float>(),
+                                partial.data_ptr<float>(), n, m, d, k, dim(partial, 0),
+                                static_cast<int>(chunk_rows), static_cast<int>(fam),
+                                static_cast<float>(s), bf16, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    repro::launch_reduce_partials(partial.data_ptr<float>(), out.data_ptr<float>(),
+                                  static_cast<long long>(m) * k, dim(partial, 0), st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    return;
+  }
+  check(xnorm, "xnorm");
+  TORCH_CHECK(xnorm.numel() == n, "xnorm must hold n = ", n, " values");
+  TORCH_CHECK(d >= 1 && d <= 32, "the register route takes 1 to 32 features, got ", d);
+  TORCH_CHECK(kc == 1 || kc == 2 || kc == 4 || kc == 5 || kc == 8,
+              "kc must be 0 (the tiled route), 1, 2, 4, 5 or 8, got ", kc);
+  TORCH_CHECK(chunk_rows > 0 && chunk_rows % 64 == 0, "chunk_rows must be a multiple of 64");
+  if (n > 0) {
+    repro::launch_row_norms(x.data_ptr<float>(), xnorm.data_ptr<float>(), n, d, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+  repro::launch_knm_t_reg(x.data_ptr<float>(), z.data_ptr<float>(), y.data_ptr<float>(),
+                          xnorm.data_ptr<float>(), partial.data_ptr<float>(), n, m, d, k,
+                          static_cast<int>(kc), static_cast<int>(chunk_rows), dim(partial, 0),
+                          static_cast<int>(fam), static_cast<float>(s), bf16, st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  repro::launch_reduce_partials(partial.data_ptr<float>(), out.data_ptr<float>(),
-                                static_cast<long long>(m) * k, dim(partial, 0), st);
+  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), out.data_ptr<float>(),
+                                        static_cast<long long>(m) * k, dim(partial, 0), st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -79,10 +107,12 @@ void knm_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& a, a
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K3: out (m, k) = k(x, z)^T y (n, k); partial is (n_chunks, m, k) scratch with
-// n_chunks * chunk_rows >= n and chunk_rows a multiple of the 64-row tile.
-void knm_t(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y, at::Tensor& partial,
-           at::Tensor& out, int64_t chunk_rows, int64_t fam, double s, bool bf16) {
+// K3: out (m, k) = k(x, z)^T y (n, k); xnorm (n,) and partial scratch, kc
+// and chunk_rows the plan of falkon_matvec/ops.py:knm_t_plan (see
+// knm_t_launches).
+void knm_t(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y, at::Tensor& xnorm,
+           at::Tensor& partial, at::Tensor& out, int64_t kc, int64_t chunk_rows, int64_t fam,
+           double s, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(y, "y");
@@ -90,7 +120,7 @@ void knm_t(const at::Tensor& x, const at::Tensor& z, const at::Tensor& y, at::Te
   check(out, "out");
   if (z.size(0) == 0 || y.size(1) == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
-  knm_t_launches(x, z, y, partial, out, chunk_rows, fam, s, bf16,
+  knm_t_launches(x, z, y, xnorm, partial, out, kc, chunk_rows, fam, s, bf16,
                  at::cuda::getCurrentCUDAStream());
 }
 
@@ -153,10 +183,11 @@ void falkon_matvec_fused(const at::Tensor& x, const at::Tensor& z, const at::Ten
 }
 
 // K2 on the two-stage route: out (m, k) = k(x, z)^T (k(x, z) v (m, k)); t (n, k)
-// holds the first stage, partial as in knm_t.
+// holds the first stage; xnorm, partial, kc and chunk_rows as in knm_t (the
+// plan of the second stage).
 void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v, at::Tensor& t,
-                   at::Tensor& partial, at::Tensor& out, int64_t chunk_rows, int64_t fam,
-                   double s, bool bf16) {
+                   at::Tensor& xnorm, at::Tensor& partial, at::Tensor& out, int64_t kc,
+                   int64_t chunk_rows, int64_t fam, double s, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(v, "v");
@@ -172,16 +203,16 @@ void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v
                              static_cast<int>(fam), static_cast<float>(s), bf16, st);
     C10_CUDA_KERNEL_LAUNCH_CHECK();
   }
-  knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
+  knm_t_launches(x, z, t, xnorm, partial, out, kc, chunk_rows, fam, s, bf16, st);
 }
 
 // K7 on the two-stage route: out (m, k) column j = k(x, z)^T diag(mask[:, j])
-// k(x, z) v[:, j]; mask (n, k); t (n, k) holds the masked first stage, partial
-// as in knm_t.
+// k(x, z) v[:, j]; mask (n, k); t (n, k) holds the masked first stage;
+// xnorm, partial, kc and chunk_rows as in knm_t.
 void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
-                          const at::Tensor& mask, at::Tensor& t, at::Tensor& partial,
-                          at::Tensor& out, int64_t chunk_rows, int64_t fam, double s,
-                          bool bf16) {
+                          const at::Tensor& mask, at::Tensor& t, at::Tensor& xnorm,
+                          at::Tensor& partial, at::Tensor& out, int64_t kc, int64_t chunk_rows,
+                          int64_t fam, double s, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(v, "v");
@@ -202,7 +233,7 @@ void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Te
                                     bf16, st);
     C10_CUDA_KERNEL_LAUNCH_CHECK();
   }
-  knm_t_launches(x, z, t, partial, out, chunk_rows, fam, s, bf16, st);
+  knm_t_launches(x, z, t, xnorm, partial, out, kc, chunk_rows, fam, s, bf16, st);
 }
 
 // K5: out (n,) = (k(x_i, x_i) - g^T w g) / lamn per row, g = k(x, z) * zmask;
@@ -282,9 +313,13 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
 }
 
 // K9: y (bsz, s, h, p) in x's dtype and state (bsz, h, p, n) fp32 from x, dt
-// (bsz, s, h), a (h,) and b, c (bsz, s, n), chunks of `chunk` rows.
+// (bsz, s, h), a (h,) and b, c (bsz, s, n), chunks of `chunk` rows; states
+// (bsz, ceil(s / chunk), h, p, n) and decay (bsz, ceil(s / chunk), h) fp32
+// scratch; state_heads and scan_heads the heads per block of ssd/ops.py's
+// ssd_plan.
 void ssd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& a, const at::Tensor& b,
-         const at::Tensor& c, at::Tensor& y, at::Tensor& state, int64_t chunk) {
+         const at::Tensor& c, at::Tensor& y, at::Tensor& state, at::Tensor& states,
+         at::Tensor& decay, int64_t chunk, int64_t state_heads, int64_t scan_heads) {
   check_act(x, "x");
   check_act(y, "y");
   check(dt, "dt");
@@ -292,6 +327,8 @@ void ssd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& a, const a
   check(b, "b");
   check(c, "c");
   check(state, "state");
+  check(states, "states");
+  check(decay, "decay");
   TORCH_CHECK(y.scalar_type() == x.scalar_type() && y.sizes() == x.sizes(),
               "y must match x in dtype and shape");
   TORCH_CHECK(x.dim() == 4 && dt.dim() == 3 && dt.size(0) == x.size(0) &&
@@ -302,23 +339,42 @@ void ssd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& a, const a
                   state.size(2) == x.size(3) && state.size(3) == b.size(2),
               "need x (b, s, h, p), dt (b, s, h), a (h,), b, c (b, s, n), state (b, h, p, n)");
   TORCH_CHECK(chunk >= 1, "chunk must be positive");
-  const int p = dim(x, 3), n = dim(b, 2), q = static_cast<int>(chunk);
+  const int bsz = dim(x, 0), s = dim(x, 1), h = dim(x, 2), p = dim(x, 3), n = dim(b, 2);
+  const int q = static_cast<int>(chunk), nc = (s + q - 1) / q;
+  TORCH_CHECK(states.dim() == 5 && states.size(0) == bsz && states.size(1) == nc &&
+                  states.size(2) == h && states.size(3) == p && states.size(4) == n &&
+                  decay.dim() == 3 && decay.size(0) == bsz && decay.size(1) == nc &&
+                  decay.size(2) == h,
+              "need states (b, ceil(s / chunk), h, p, n) and decay (b, ceil(s / chunk), h)");
+  TORCH_CHECK(state_heads >= 1 && state_heads <= 64 && (state_heads == 1 || state_heads * p <= 512)
+                  && scan_heads >= 1 && scan_heads <= 8,
+              "state_heads must be 1, or at most 64 with state_heads * p <= 512; scan_heads 1 to 8");
   TORCH_CHECK(repro::ssd_smem_floats(p, n, q) * 4 <= 232448,
               "ssd: head dim ", p, ", state dim ", n, " and chunk ", q,
               " need more than the 227 KB of shared memory a block may use");
-  if (x.size(0) == 0 || x.size(2) == 0 || p == 0 || n == 0) return;
+  if (bsz == 0 || s == 0 || h == 0 || p == 0 || n == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
-  repro::launch_ssd(x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(), b.data_ptr<float>(),
-                    c.data_ptr<float>(), y.data_ptr(), state.data_ptr<float>(), dim(x, 0),
-                    dim(x, 1), dim(x, 2), p, n, q, x.scalar_type() == at::kBFloat16,
-                    at::cuda::getCurrentCUDAStream());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  const bool bf16 = x.scalar_type() == at::kBFloat16;
+  repro::launch_ssd_chunk_state(x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(),
+                                b.data_ptr<float>(), states.data_ptr<float>(),
+                                decay.data_ptr<float>(), bsz, s, h, p, n, q,
+                                static_cast<int>(state_heads), bf16, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_ssd_state_passing(states.data_ptr<float>(), decay.data_ptr<float>(),
+                                  state.data_ptr<float>(), bsz, h, p, n, nc, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_ssd_chunk_scan(x.data_ptr(), dt.data_ptr<float>(), a.data_ptr<float>(),
+                               b.data_ptr<float>(), c.data_ptr<float>(), states.data_ptr<float>(),
+                               y.data_ptr(), bsz, s, h, p, n, q, static_cast<int>(scan_heads),
+                               bf16, st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gram", &gram, "K1: dense Gram matrix");
   m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
-  m.def("knm_t", &knm_t, "K3: K_nM^T Y, fixed-order two-stage sum");
+  m.def("knm_t", &knm_t, "K3: K_nM^T Y, G in registers, fixed-order sum of row chunks");
   m.def("falkon_matvec_fused", &falkon_matvec_fused,
         "K2 or K7 on the cluster route: one Gram build per call");
   m.def("falkon_matvec", &falkon_matvec, "K2 on the two-stage route: K_nM^T K_nM V");
@@ -327,5 +383,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("rls_score", &rls_score, "K5: fused Eq. 3 score, fixed-order two-stage sum");
   m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
   m.def("flash_attention", &flash_attention, "K8: causal or bidirectional GQA attention");
-  m.def("ssd", &ssd, "K9: the Mamba-2 SSD chunk scan");
+  m.def("ssd", &ssd, "K9: the Mamba-2 SSD chunk scan (chunk states, state passing, chunk scan)");
 }

@@ -30,11 +30,13 @@ void launch_falkon_matvec_fused(const float* x, const float* z, const float* v,
                                 int chunk_rows, int n_chunks, int fam, float s, bool bf16,
                                 cudaStream_t st);
 
-// The cluster route's first launch: out (n,) = the squared norms of x's rows.
+// The first launch of the cluster route and of K3's register route: out (n,)
+// = the squared norms of x's rows.
 void launch_row_norms(const float* x, float* out, int n, int d, cudaStream_t st);
 
-// The cluster route's last launch: out[i] = sum over chunks of partial[chunk, i],
-// i < len, in groups of 32 chunks (each group in index order, then the groups).
+// The last launch of the cluster route and of K3's register route: out[i] =
+// sum over chunks of partial[chunk, i], i < len, in groups of 32 chunks (each
+// group in index order, then the groups).
 void launch_reduce_partials_blocked(const float* partial, float* out, long long len,
                                     int n_chunks, cudaStream_t st);
 
@@ -51,7 +53,16 @@ void launch_knm_matvec_masked(const float* x, const float* z, const float* a, co
                               float* out, int n, int m, int d, int k, int fam, float s,
                               bool bf16, cudaStream_t st);
 
-// K3, and stage 2 of K2 and K7 on the two-stage route, first half: partial
+// K3, and stage 2 of K2 and K7 on the two-stage route, on the register route
+// (d <= 32): partial (n_chunks, m, k) holds, per chunk of chunk_rows rows (a
+// multiple of 64), that chunk's k(x, z)^T y, from x's row norms xnorm (n,)
+// (launch_row_norms); kc (1, 2, 4, 5 or 8) output columns per block. The
+// chunks are added by launch_reduce_partials_blocked.
+void launch_knm_t_reg(const float* x, const float* z, const float* y, const float* xnorm,
+                      float* partial, int n, int m, int d, int k, int kc, int chunk_rows,
+                      int n_chunks, int fam, float s, bool bf16, cudaStream_t st);
+
+// The same on the tiled route (d above 32), first half: partial
 // (n_chunks, m, k) holds, per chunk of chunk_rows rows, that chunk's
 // k(x, z)^T y summed in row order.
 void launch_knm_t_partial(const float* x, const float* z, const float* y, float* partial,
@@ -87,15 +98,30 @@ void launch_flash_attention(const void* q, const void* k, const void* v, void* o
                             int hq, int hkv, int s, int d, float scale, bool causal, bool bf16,
                             cudaStream_t st);
 
-// K9: the SSD chunk scan. y (bsz, s, h, p) and the final state (bsz, h, p, n),
-// fp32, from x (bsz, s, h, p), dt (bsz, s, h), a (h,), b and c (bsz, s, n), in
-// chunks of q rows; x and y fp32, or both bf16 if `bf16`.
-void launch_ssd(const void* x, const float* dt, const float* a, const float* b, const float* c,
-                void* y, float* state, int bsz, int s, int h, int p, int n, int q, bool bf16,
-                cudaStream_t st);
+// K9, the SSD chunk scan, in three launches over x (bsz, s, h, p), dt
+// (bsz, s, h), a (h,), b and c (bsz, s, n) in chunks of q rows; x and y fp32,
+// or both bf16 if `bf16`; states (bsz, ceil(s / q), h, p, n) and decay
+// (bsz, ceil(s / q), h) fp32 scratch. First: each chunk's end state from a
+// zero start into states, and exp(sum of dt a over the chunk) into decay,
+// blocks of hg heads (hg p <= 512 or hg 1, hg <= 64).
+void launch_ssd_chunk_state(const void* x, const float* dt, const float* a, const float* b,
+                            float* states, float* decay, int bsz, int s, int h, int p, int n,
+                            int q, int hg, bool bf16, cudaStream_t st);
 
-// Floats of shared memory one K9 block takes for head dim p, state dim n and
-// chunk q.
+// Second: over the nc chunks in order, states[:, c] becomes the state entering
+// chunk c; the final state (bsz, h, p, n) goes to `state`.
+void launch_ssd_state_passing(float* states, const float* decay, float* state, int bsz, int h,
+                              int p, int n, int nc, cudaStream_t st);
+
+// Third: y (bsz, s, h, p) in x's dtype from the states entering each chunk,
+// blocks of hg heads sharing one C B^T.
+void launch_ssd_chunk_scan(const void* x, const float* dt, const float* a, const float* b,
+                           const float* c, const float* states, void* y, int bsz, int s, int h,
+                           int p, int n, int q, int hg, bool bf16, cudaStream_t st);
+
+// Floats of dynamic shared memory the larger of K9's two chunk kernels takes
+// per block for head dim p, state dim n and chunk q (the chunk-state kernel
+// at its most heads per block).
 long long ssd_smem_floats(int p, int n, int q);
 
 }  // namespace repro

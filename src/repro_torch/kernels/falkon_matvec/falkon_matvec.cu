@@ -21,16 +21,35 @@
 // the 10^10 values takes ~12 ms at the card's issue rate. They are bound by
 // operations.
 //
-// K4 and K3 (the shared `gram_tile` of ../csrc/gram_tile.cuh):
-//  * K4 (knm_matvec): one block per 64-row tile of X loops over M in
-//    64-center chunks and accumulates its (64, k) output rows in registers.
-//    No reduction across blocks.
-//  * K3 (knm_t): the TPU kernel accumulates one resident (M, k) block over a
-//    *sequential* grid. Hopper blocks run in parallel and in no order, so the
-//    sum is a fixed-order two-stage one: block (center tile, row chunk) sums
-//    its chunk's rows in order into partial[chunk], then `reduce_partials`
-//    adds the chunks in index order. No float atomics: the result is
-//    bit-repeatable for a given (n, M, k).
+// K4 (the shared `gram_tile` of ../csrc/gram_tile.cuh): one block per 64-row
+// tile of X loops over M in 64-center chunks and accumulates its (64, k)
+// output rows in registers. No reduction across blocks.
+//
+// K3 (knm_t): the TPU kernel accumulates one resident (M, k) block over a
+// *sequential* grid. Hopper blocks run in parallel and in no order, so the
+// sum is a fixed-order two-stage one: each block sums its row chunk into
+// partial[chunk], then a second launch adds the chunks. No float atomics:
+// the result is bit-repeatable for a given (n, M, d, k). Two routes, chosen
+// by shape alone (ops.knm_t_plan):
+//  * "register" (d <= 32): `knm_t_reg_kernel`, grid (512-center slices, row
+//    chunks, column chunks of NC = 1, 2, 4, 5 or 8). Thread t owns centers
+//    2t, 2t + 1 of the slice: their z rows (over the whole of d) and norms
+//    stay in its registers for the whole call. The block walks its row chunk
+//    in 64-row tiles, each staged feature-major with its norms and Y columns
+//    by cp.async, double-buffered; per 8 rows each thread builds its 8 x 2
+//    Gram values in straight-line code (one jump per tile into a
+//    fall-through over the features, the x values shared-memory broadcasts),
+//    switches the family epilogue once, and adds the 8-row sums of G Y into
+//    its (2, NC) accumulator. G never leaves the registers and no two
+//    threads share an output, so a chunk's sum needs no exchange. A first
+//    launch writes the rows' squared norms; `reduce_partials_blocked` adds
+//    the chunks in groups of 32. The plan gives ~2 048 blocks and chunks of
+//    at most 16 384 rows, so each thread's chain is at most 2 048 8-row sums
+//    (chip_smoke.py phase 4's refit gate feels this order). Also stage 2 of
+//    K2/K7's two-stage route.
+//  * "tiled" (d above 32, where the z rows no longer fit in registers):
+//    `knm_t_partial_kernel`, block (64-center tile, row chunk) on the shared
+//    `gram_tile`, its chunks added in index order by `reduce_partials`.
 //
 // K2 and K7 have two routes, chosen by shape alone (ops.matvec_plan):
 //  * "cluster" (M up to 12 288 at d = 18 and k = 1; d <= 64):
@@ -80,12 +99,13 @@
 //    it.
 //  * "two-stage" (above that cap): stage 1 is the K4 kernel writing T (n, k)
 //    to device memory (knm_matvec_kernel<MASKED>: K7 multiplies each output
-//    by the mask as it is written), stage 2 the K3 kernels on T. Twice the
-//    Gram builds of the fused reference.
+//    by the mask as it is written), stage 2 K3 on T by K3's own plan. Twice
+//    the Gram builds of the fused reference.
 //  * Rows >= n and centers >= M are masked inside the kernels; nothing is
 //    padded, d and k are used as given.
 #include <cooperative_groups.h>
 
+#include "cp_async.cuh"
 #include "gram_tile.cuh"
 #include "launchers.h"
 #include "tile_epilogue.cuh"
@@ -160,8 +180,9 @@ knm_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-// partial[chunk, center tile, kc0:kc0+kw] = sum over the chunk's rows of G^T Y,
-// rows taken in order. Grid: (center tiles, row chunks, column chunks).
+// K3 on the tiled route: partial[chunk, center tile, kc0:kc0+kw] = sum over
+// the chunk's rows of G^T Y, rows taken in order. Grid: (center tiles, row
+// chunks, column chunks).
 __global__ void __launch_bounds__(THREADS)
 knm_t_partial_kernel(const float* __restrict__ x, const float* __restrict__ z,
                      const float* __restrict__ y, float* __restrict__ partial,
@@ -666,6 +687,213 @@ __global__ void reduce_partials_blocked_kernel(const float* __restrict__ partial
   out[i] = total;
 }
 
+// ---------------------------------------------------------------------------
+// K3 on the register route (d <= KT_DMAX): G built and contracted in registers.
+// ---------------------------------------------------------------------------
+
+constexpr int KT_THREADS = 256;
+constexpr int KT_NJ = 2;                         // centers per thread
+constexpr int KT_SLICE = KT_THREADS * KT_NJ;     // centers per block (512)
+constexpr int KT_ROWS = 64;                      // rows per staged tile
+constexpr int KT_NI = 8;                         // rows per register tile
+constexpr int KT_DMAX = 32;                      // largest d the route takes
+constexpr int KT_XS = KT_ROWS + 4;               // x tile stride: 16-byte rows, 2-way bank conflicts
+static_assert(KT_ROWS % KT_NI == 0 && KT_NI == 8, "a register tile is two float4 of rows");
+
+// Offsets (in floats) into the block's dynamic shared memory for d features
+// and nc output columns; every region starts on a 16-byte boundary.
+struct KnmTLayout {
+  int xs, xn, ys, total;
+};
+
+__host__ __device__ inline KnmTLayout knm_t_layout(int d, int nc) {
+  KnmTLayout l;
+  l.xs = 0;                          // [2][d][KT_XS] two tiles' rows, feature-major
+  l.xn = l.xs + 2 * d * KT_XS;       // [2][KT_ROWS]  their squared norms
+  l.ys = l.xn + 2 * KT_ROWS;         // [2][nc][KT_ROWS] their Y columns kc0 .. kc0 + nc
+  l.total = l.ys + 2 * nc * KT_ROWS;
+  return l;
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but(int pending) {
+  if (pending)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One feature F of an 8 x 2 register tile: g[i][j] += x[r0 + i][F] z_j[F].
+template <int F>
+__device__ __forceinline__ void kt_feature(float (&g)[KT_NI][KT_NJ], const float* xs, int r0,
+                                           const float (&zr)[KT_NJ][KT_DMAX]) {
+  const float4 a0 = *reinterpret_cast<const float4*>(xs + F * KT_XS + r0);
+  const float4 a1 = *reinterpret_cast<const float4*>(xs + F * KT_XS + r0 + 4);
+  const float a[KT_NI] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+  for (int i = 0; i < KT_NI; ++i)
+#pragma unroll
+    for (int j = 0; j < KT_NJ; ++j) g[i][j] = fmaf(a[i], zr[j][F], g[i][j]);
+}
+
+// `case d:` enters the features at d - 1 and falls through to feature 0, so
+// one jump per register tile replaces a test per feature.
+#define KT_FEATURE(F)                \
+  case (F) + 1:                      \
+    kt_feature<(F)>(g, xs, r0, zr); \
+    [[fallthrough]];
+#define KT_FEATURES4(F) KT_FEATURE((F) + 3) KT_FEATURE((F) + 2) KT_FEATURE((F) + 1) KT_FEATURE(F)
+static_assert(KT_DMAX == 32, "the switch below lists 32 features");
+
+// partial[chunk, base .. base + KT_SLICE, kc0 .. kc0 + kw] = the chunk's
+// rows of G^T Y, G = k(x, z slice). Grid: (center slices, row chunks,
+// column chunks). Thread t owns centers base + 2t, base + 2t + 1: their z
+// rows (bf16: rounded) and norms live in its registers for the whole call.
+// The block walks its row chunk in KT_ROWS-row tiles, each staged
+// feature-major with its norms and Y columns by cp.async, double-buffered.
+// Per 8 rows each thread builds its 8 x 2 Gram values over the whole of d
+// (straight-line code, features d - 1 down to 0; the x values are
+// shared-memory broadcasts, every thread of the block reading the same
+// ones), switches the family epilogue once, and adds
+// sum_i G[i, j] Y[i, c] (an 8-term chain) into its accumulator of (j, c):
+// G never leaves the registers, and no two threads share an output. Rows
+// past rend are staged as zeros (x, norm and Y), so they add exactly 0.
+template <int NC, bool BF16>
+__global__ void __launch_bounds__(KT_THREADS, 2)
+knm_t_reg_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                 const float* __restrict__ y, const float* __restrict__ xnorm,
+                 float* __restrict__ partial, int n, int m, int d, int k, int chunk_rows,
+                 int fam, float s) {
+  extern __shared__ __align__(16) float dyn[];
+  const KnmTLayout L = knm_t_layout(d, NC);
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.y;
+  const int kc0 = blockIdx.z * NC;
+  const int kw = min(NC, k - kc0);
+  const int rbeg = min(n, chunk * chunk_rows), rend = min(n, rbeg + chunk_rows);
+  const int j0 = blockIdx.x * KT_SLICE + KT_NJ * tid;  // this thread's first center
+  const bool active = j0 < m;
+
+  float zr[KT_NJ][KT_DMAX], zn[KT_NJ];
+#pragma unroll
+  for (int j = 0; j < KT_NJ; ++j) {
+    zn[j] = 0.0f;
+    const bool valid = j0 + j < m;
+    const float* zp = z + static_cast<long long>(j0 + j) * d;
+#pragma unroll
+    for (int f = 0; f < KT_DMAX; ++f) {
+      const float v = (valid && f < d) ? zp[f] : 0.0f;
+      zn[j] = fmaf(v, v, zn[j]);  // features in order; the zeros past d add exactly 0
+      zr[j][f] = BF16 ? round_bf16(v) : v;
+    }
+  }
+  float acc[KT_NJ][NC];
+#pragma unroll
+  for (int j = 0; j < KT_NJ; ++j)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[j][c] = 0.0f;
+
+  // Tile rows [row0, row0 + KT_ROWS) into buffer b: x feature-major, its
+  // norms, its Y columns; rows from rend on as zeros. Each thread copies the
+  // same elements of every tile (the BF16 rounding pass relies on it).
+  auto stage = [&](int row0, int b) {
+    const int rows = rend - row0;
+    float* xs = dyn + L.xs + b * d * KT_XS;
+    const float* src = x + static_cast<long long>(row0) * d;
+    for (int e = tid; e < KT_ROWS * d; e += KT_THREADS) {
+      const int r = e / d, f = e - r * d;
+      cp_async4(xs + f * KT_XS + r, src + (r < rows ? e : 0), r < rows ? 4 : 0);
+    }
+    if (tid < KT_ROWS)
+      cp_async4(dyn + L.xn + b * KT_ROWS + tid, xnorm + row0 + (tid < rows ? tid : 0),
+                tid < rows ? 4 : 0);
+    for (int e = tid; e < NC * KT_ROWS; e += KT_THREADS) {
+      const int c = e / KT_ROWS, r = e - c * KT_ROWS;
+      const bool ok = r < rows && c < kw;
+      cp_async4(dyn + L.ys + (b * NC + c) * KT_ROWS + r,
+                y + (ok ? static_cast<long long>(row0 + r) * k + kc0 + c : 0), ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  const int tiles = (rend - rbeg + KT_ROWS - 1) / KT_ROWS;
+  if (tiles > 0) stage(rbeg, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int b = t & 1, row0 = rbeg + t * KT_ROWS;
+    const bool next = t + 1 < tiles;
+    if (next) stage(row0 + KT_ROWS, b ^ 1);  // the other buffer, free since the last barrier
+    cp_async_wait_all_but(next ? 1 : 0);     // this tile has landed
+    float* xs = dyn + L.xs + b * d * KT_XS;
+    if constexpr (BF16) {  // the cross term's operands rounded, the norms not
+      for (int e = tid; e < KT_ROWS * d; e += KT_THREADS) {
+        const int r = e / d, f = e - r * d;
+        xs[f * KT_XS + r] = round_bf16(xs[f * KT_XS + r]);
+      }
+    }
+    __syncthreads();
+    if (active) {
+      const float* xn = dyn + L.xn + b * KT_ROWS;
+      const float* ys = dyn + L.ys + b * NC * KT_ROWS;
+      const int rows = min(KT_ROWS, rend - row0);
+      for (int r0 = 0; r0 < rows; r0 += KT_NI) {
+        float g[KT_NI][KT_NJ];
+#pragma unroll
+        for (int i = 0; i < KT_NI; ++i)
+#pragma unroll
+          for (int j = 0; j < KT_NJ; ++j) g[i][j] = 0.0f;
+        // features d - 1 down to 0, straight-line code entered at feature d - 1
+        switch (d) {
+          KT_FEATURES4(28) KT_FEATURES4(24) KT_FEATURES4(20) KT_FEATURES4(16)
+          KT_FEATURES4(12) KT_FEATURES4(8) KT_FEATURES4(4) KT_FEATURES4(0)
+          default: break;
+        }
+        const float4 n0 = *reinterpret_cast<const float4*>(xn + r0);
+        const float4 n1 = *reinterpret_cast<const float4*>(xn + r0 + 4);
+        const float xni[KT_NI] = {n0.x, n0.y, n0.z, n0.w, n1.x, n1.y, n1.z, n1.w};
+        tile_epilogue(fam, g, xni, zn, s);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 y0 = *reinterpret_cast<const float4*>(ys + c * KT_ROWS + r0);
+          const float4 y1 = *reinterpret_cast<const float4*>(ys + c * KT_ROWS + r0 + 4);
+          const float yv[KT_NI] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+          for (int j = 0; j < KT_NJ; ++j) {
+            float t8 = g[0][j] * yv[0];
+#pragma unroll
+            for (int i = 1; i < KT_NI; ++i) t8 = fmaf(g[i][j], yv[i], t8);
+            acc[j][c] += t8;
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer b is free for the tile after next
+  }
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < KT_NJ; ++j) {
+      if (j0 + j >= m) break;
+      float* out = partial + (static_cast<long long>(chunk) * m + j0 + j) * k + kc0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (c < kw) out[c] = acc[j][c];
+    }
+  }
+}
+
+// The instantiation for NC output columns per block (1, 2, 4, 5 or 8).
+template <bool BF16>
+void launch_knm_t_reg_bf(const float* x, const float* z, const float* y, const float* xnorm,
+                         float* partial, int n, int m, int d, int k, int kc, int chunk_rows,
+                         int n_chunks, int fam, float s, cudaStream_t st) {
+  const auto kernel = kc == 1   ? knm_t_reg_kernel<1, BF16>
+                      : kc == 2 ? knm_t_reg_kernel<2, BF16>
+                      : kc == 4 ? knm_t_reg_kernel<4, BF16>
+                      : kc == 5 ? knm_t_reg_kernel<5, BF16>
+                                : knm_t_reg_kernel<8, BF16>;
+  const int smem = knm_t_layout(d, kc).total * static_cast<int>(sizeof(float));
+  const dim3 grid((m + KT_SLICE - 1) / KT_SLICE, n_chunks, (k + kc - 1) / kc);
+  kernel<<<grid, KT_THREADS, smem, st>>>(x, z, y, xnorm, partial, n, m, d, k, chunk_rows, fam, s);
+}
+
 // out[i] = |x_i|^2, the features summed in order; one thread per row.
 __global__ void row_norms_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
                                  int d) {
@@ -701,6 +929,18 @@ void repro::launch_knm_t_partial(const float* x, const float* z, const float* y,
   const dim3 grid((m + TILE - 1) / TILE, n_chunks, (k + KC - 1) / KC);
   knm_t_partial_kernel<<<grid, THREADS, 0, st>>>(x, z, y, partial, n, m, d, k, chunk_rows,
                                                   fam, s, bf16);
+}
+
+void repro::launch_knm_t_reg(const float* x, const float* z, const float* y,
+                             const float* xnorm, float* partial, int n, int m, int d, int k,
+                             int kc, int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                             cudaStream_t st) {
+  if (bf16)
+    launch_knm_t_reg_bf<true>(x, z, y, xnorm, partial, n, m, d, k, kc, chunk_rows, n_chunks, fam,
+                              s, st);
+  else
+    launch_knm_t_reg_bf<false>(x, z, y, xnorm, partial, n, m, d, k, kc, chunk_rows, n_chunks,
+                               fam, s, st);
 }
 
 void repro::launch_reduce_partials(const float* partial, float* out, long long len,

@@ -21,11 +21,23 @@ pure function of the shape (never of a failure):
   distributed shared memory. Taken for d <= 64 and M up to the cap that
   budget sets (12 288 at d = 18 and k = 1).
 * ``"two-stage"`` (larger M or d): the K4 kernel writes T (n, k) to device
-  memory and the K3 kernels form K_nM^T T, building every Gram value twice.
+  memory and K3's kernels form K_nM^T T, building every Gram value twice.
 
 Both add their row chunks' partial sums in a fixed order (bit-repeatable
 for a given shape), and both count under ``falkon_matvec.launches`` (K2) or
 ``falkon_matvec_masked.launches`` (K7).
+
+K3 (and the two-stage route's second stage) takes the route of
+``knm_t_plan(n, M, d, k)``, again a pure function of the shape:
+
+* ``"register"`` (d <= 32): each block owns 512 centers, two per thread, with
+  their z rows in the thread's registers, and walks one row chunk in 64-row
+  tiles staged by ``cp.async``; each thread builds its Gram values in
+  registers and contracts them there against Y, ``kc`` columns per block.
+  The row chunks give about ``TARGET_BLOCKS`` blocks, none longer than
+  ``KT_MAX_CHUNK_ROWS`` rows, and are added in groups of 32.
+* ``"tiled"`` (d above 32): the kernel on the shared 64 x 64 ``gram_tile``,
+  its chunks from ``row_chunks``.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ TARGET_BLOCKS = 2048
 
 
 def row_chunks(n: int, m: int) -> tuple[int, int]:
-    """(n_chunks, chunk_rows) of the two-stage K_nM^T reduction.
+    """(n_chunks, chunk_rows) of K3's tiled route (d above 32).
 
     Each (center tile, row chunk) block sums its rows in order; the chunks
     are then added in index order. The split depends on (n, M) alone, so a
@@ -72,11 +84,64 @@ SMEM_BYTES = 232_448
 FUSED_MAX_CHUNKS = 1024
 
 
+#: K3's register route (falkon_matvec.cu): centers per block, rows per staged
+#: tile, largest d, and the longest row chunk (a thread's chain of 8-row sums).
+KT_SLICE = 512
+KT_ROWS = 64
+KT_DMAX = 32
+KT_MAX_CHUNK_ROWS = 16_384
+
+
+class KnmTPlan(NamedTuple):
+    """How K3 runs at one shape: ``route`` "register" (``slice_cols``
+    centers per block, tiles of ``rows`` rows, ``kc`` output columns per
+    block) or "tiled"; the rows are summed in ``n_chunks`` chunks of
+    ``chunk_rows``."""
+
+    route: str
+    slice_cols: int
+    rows: int
+    kc: int
+    n_chunks: int
+    chunk_rows: int
+
+
+def knm_t_smem_floats(d: int, kc: int) -> int:
+    """Floats of shared memory one block of K3's register route takes
+    (``knm_t_layout`` in falkon_matvec.cu): for two tiles, each row's
+    features (at a stride of 68 rows), its norm and its kc Y values."""
+    return 2 * d * (KT_ROWS + 4) + 2 * KT_ROWS + 2 * kc * KT_ROWS
+
+
+def _kc(k: int) -> int:
+    """The output columns per block or work item for a k-column panel."""
+    return next(c for c in FUSED_KC if c >= min(max(k, 1), FUSED_KC[-1]))
+
+
+def knm_t_plan(n: int, m: int, d: int, k: int) -> KnmTPlan:
+    """The route of K3 for x (n, d), M centers and k columns: the register
+    route for d <= 32, else the tiled route. Row chunks of whole 64-row
+    tiles, as many as bring the grid to about TARGET_BLOCKS blocks (a few
+    waves of 132 SMs), and at least as many as keep each chunk within
+    KT_MAX_CHUNK_ROWS rows. A function of the shape alone."""
+    if d > KT_DMAX:
+        n_chunks, chunk_rows = row_chunks(n, m)
+        return KnmTPlan("tiled", TILE, TILE, 0, n_chunks, chunk_rows)
+    kc = _kc(k)
+    per_chunk = max(1, -(-m // KT_SLICE)) * -(-max(k, 1) // kc)  # blocks per row chunk
+    tiles = max(1, -(-n // KT_ROWS))
+    want = max(-(-TARGET_BLOCKS // per_chunk), -(-tiles // (KT_MAX_CHUNK_ROWS // KT_ROWS)))
+    want = min(want, tiles, 65535)
+    chunk_rows = -(-tiles // want) * KT_ROWS
+    return KnmTPlan("register", KT_SLICE, KT_ROWS, kc, max(1, -(-n // chunk_rows)), chunk_rows)
+
+
 class MatvecPlan(NamedTuple):
     """How K2 / K7 run at one shape: ``route`` "cluster" (``cluster`` blocks
     of ``slice_cols`` centers each, ``kc`` output columns per work item) or
-    "two-stage"; the rows are summed in ``n_chunks`` chunks of
-    ``chunk_rows``."""
+    "two-stage" (``kc``, ``n_chunks`` and ``chunk_rows`` those of
+    ``knm_t_plan``, whose kernels run the second stage); the rows are summed
+    in ``n_chunks`` chunks of ``chunk_rows``."""
 
     route: str
     cluster: int
@@ -101,7 +166,7 @@ def matvec_plan(n: int, m: int, d: int, k: int) -> MatvecPlan:
     cluster route with the fewest blocks per cluster whose slice fits in a
     block's shared memory and leaves no block without centers, else the
     two-stage route. A function of the shape alone."""
-    kc = next(c for c in FUSED_KC if c >= min(max(k, 1), FUSED_KC[-1]))
+    kc = _kc(k)
     if d <= FUSED_DMAX:
         for cluster in FUSED_CLUSTERS:
             sw = round_up(-(-m // cluster), FUSED_SLICE_STEP)
@@ -110,8 +175,8 @@ def matvec_plan(n: int, m: int, d: int, k: int) -> MatvecPlan:
                 per = -(-tiles // FUSED_MAX_CHUNKS)
                 return MatvecPlan("cluster", cluster, sw, kc, -(-tiles // per),
                                   per * FUSED_ROWS)
-    n_chunks, chunk_rows = row_chunks(n, m)
-    return MatvecPlan("two-stage", 0, 0, 0, n_chunks, chunk_rows)
+    stage2 = knm_t_plan(n, m, d, k)
+    return MatvecPlan("two-stage", 0, 0, stage2.kc, stage2.n_chunks, stage2.chunk_rows)
 
 
 def _inv_scale(kind: str, sigma: float) -> float:
@@ -161,16 +226,18 @@ def _matvec(x, z, vp, mp, fam_id: int, s: float, bf16: bool) -> torch.Tensor:
     partial = torch.empty((plan.n_chunks, m, k), dtype=torch.float32, device=x.device)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
     ext = build.extension()
+    xnorm = torch.empty((n,), dtype=torch.float32, device=x.device)
     if plan.route == "cluster":
-        xnorm = torch.empty((n,), dtype=torch.float32, device=x.device)
         ext.falkon_matvec_fused(x, z, vp, mp, xnorm, partial, out, plan.cluster, plan.slice_cols,
                                 plan.kc, plan.chunk_rows, fam_id, s, bf16)
         return out
     t = torch.empty((n, k), dtype=torch.float32, device=x.device)
     if mp is None:
-        ext.falkon_matvec(x, z, vp, t, partial, out, plan.chunk_rows, fam_id, s, bf16)
+        ext.falkon_matvec(x, z, vp, t, xnorm, partial, out, plan.kc, plan.chunk_rows, fam_id, s,
+                          bf16)
     else:
-        ext.falkon_matvec_masked(x, z, vp, mp, t, partial, out, plan.chunk_rows, fam_id, s, bf16)
+        ext.falkon_matvec_masked(x, z, vp, mp, t, xnorm, partial, out, plan.kc, plan.chunk_rows,
+                                 fam_id, s, bf16)
     return out
 
 
@@ -214,12 +281,14 @@ def knm_t(x: torch.Tensor, z: torch.Tensor, y: torch.Tensor, sigma: float = 1.0,
     fam_id = cuda_family_id(kind)
     x, z = _check_xz(x, z)
     yp, squeeze = _as_panel(y, x.shape[0], "y")
-    n = x.shape[0]
+    n, d = x.shape
     m, k = z.shape[0], yp.shape[1]
-    n_chunks, chunk_rows = row_chunks(n, m)
-    partial = torch.empty((n_chunks, m, k), dtype=torch.float32, device=x.device)
+    plan = knm_t_plan(n, m, d, k)
+    xnorm = torch.empty((n,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((plan.n_chunks, m, k), dtype=torch.float32, device=x.device)
     out = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    build.extension().knm_t(x, z, yp, partial, out, chunk_rows, fam_id, s, bf16)
+    build.extension().knm_t(x, z, yp, xnorm, partial, out, plan.kc, plan.chunk_rows, fam_id, s,
+                            bf16)
     knm_t.launches += 1
     return out[:, 0] if squeeze else out
 

@@ -21,8 +21,9 @@ from .layers import ninit, param, rms_norm
 __all__ = ["Mamba", "softplus", "ssd_chunked", "ssd_decode_step"]
 
 #: SSD chunk of the full-sequence block on both devices. The reference's block
-#: uses 256 (``mamba2.py:118``); the chunk changes only rounding, and 64 keeps
-#: K9's shared memory at 47 KB, several blocks per SM at Jamba's width.
+#: uses 256 (``mamba2.py:118``); the chunk changes only rounding. K9 runs
+#: faster at 64 than at 128 on the card (its (Q, Q) products grow with the
+#: chunk; PERF.md section 6), so the port keeps 64.
 CHUNK = 64
 
 

@@ -90,6 +90,51 @@ def test_launch_counts_and_bit_repeatable_reductions(dev):
                                        "flash_attention": 0, "ssd": 0}
 
 
+# K3's register route (d <= 32) and its tiled route above the cap: M not a
+# multiple of the 512-center slice, n not a multiple of the 64-row tile.
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 9])
+@pytest.mark.parametrize("d", [18, 32, 33])
+def test_knm_t_routes_match_plain(dev, kind, bf16, k, d):
+    x, z, _, y = _inputs(dev, 3001, 1023, d, k, seed=20)
+    plan = fo.knm_t_plan(x.shape[0], z.shape[0], d, k)
+    assert plan.route == ("register" if d <= fo.KT_DMAX else "tiled")
+    kw = dict(kind=kind, bf16=bf16)
+    ref = fo.knm_t_reference(x, z, y, 3.0, **kw)
+    _close(fo.knm_t(x, z, y, 3.0, **kw), ref, (3e-2 if bf16 else 1e-4) * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n,m,d,k", [(20_011, 1_500, 18, 1), (20_011, 1_500, 18, 5),
+                                     (65_537, 513, 7, 2), (4_999, 77, 40, 3)])
+def test_knm_t_repeats_bit_for_bit(dev, n, m, d, k):
+    x, z, _, y = _inputs(dev, n, m, d, k, seed=21)
+    kernels.reset_launch_counts()
+    first = fo.knm_t(x, z, y)
+    torch.cuda.synchronize()
+    assert torch.equal(first, fo.knm_t(x, z, y))  # fixed-order sums, no atomics
+    assert kernels.launch_counts()["knm_t"] == 2
+    ref = fo.knm_t_reference(x, z, y)
+    _close(first, ref, 1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("m,k,d", [(12_289, 1, 18), (16_384, 5, 18), (12_289, 2, 40)])
+def test_two_stage_route_matches_plain_and_keeps_the_mask_exact(dev, m, k, d):
+    # stage 2 of the two-stage route is K3's plan: the register route at
+    # d = 18, the tiled route at d = 40
+    x, z, v, _ = _inputs(dev, 9_001, m, d, k, seed=22)
+    assert fo.matvec_plan(x.shape[0], m, d, k).route == "two-stage"
+    mask = _mask(dev, x.shape[0], k, "k3", seed=23)
+    ref = fo.falkon_matvec_reference(x, z, v, 3.0)
+    plain = fo.falkon_matvec(x, z, v, 3.0)
+    _close(plain, ref, 1e-4 * float(ref.abs().max()))
+    ref = fo.falkon_matvec_masked_reference(x, z, v, mask, 3.0)
+    _close(fo.falkon_matvec(x, z, v, 3.0, mask=mask), ref, 1e-4 * float(ref.abs().max()))
+    ones = fo.falkon_matvec(x, z, v, 3.0, mask=torch.ones_like(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(ones, plain) and torch.equal(plain, fo.falkon_matvec(x, z, v, 3.0))
+
+
 def _mask(dev, n, k, case, seed=0):
     """The row masks K7 takes: a 0/1 vector or panel, fractional weights, or
     an (n,) mask that the wrapper broadcasts to the panel."""
@@ -449,6 +494,29 @@ def test_ssd_kernel_matches_plain(dev, dtype, b, s, h, p, n, chunk):
     from repro_torch.kernels import ssd_ops as so
 
     g = torch.Generator(device=dev).manual_seed(s + h)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=dev))
+    a = -torch.exp(0.3 * torch.randn((h,), generator=g, device=dev))
+    bm, cm = (0.5 * torch.randn((b, s, n), generator=g, device=dev) for _ in range(2))
+    y, st = so.ssd(x, dt, a, bm, cm, chunk=chunk)
+    yr, sr = so.ssd_reference(x, dt, a, bm, cm, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-4
+    _close(y.float(), yr.float(), tol * float(yr.float().abs().max()))
+    _close(st, sr, tol * float(sr.abs().max()))
+    y2, st2 = so.ssd(x, dt, a, bm, cm, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)  # no atomics: bit-repeatable
+
+
+# K9 over many chunks (S = 4 100: 129 chunks of 32), with H not a multiple of
+# the 8-head scan group, and P, N off the kernels' vector widths.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("b,s,h,p,n", [(1, 4100, 12, 64, 16), (2, 777, 3, 17, 5)])
+def test_ssd_kernel_carries_the_state_over_many_chunks(dev, dtype, chunk, b, s, h, p, n):
+    from repro_torch.kernels import ssd_ops as so
+
+    g = torch.Generator(device=dev).manual_seed(s + chunk)
     x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=dev))
     a = -torch.exp(0.3 * torch.randn((h,), generator=g, device=dev))

@@ -179,11 +179,13 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
     assert [lvl["lam"] for lvl in fb["levels"]][-1] == 1e-2
     bless_t = fb.pop("tensors")
     calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=bless_t, folds=3)
-    assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + ["quadform@ladder"]
+    assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + ["knm_t@cv", "quadform@ladder"]
     masked = next(c for c in calls if c[0] == "falkon_matvec_masked")
     assert masked[1:5] == (1536, int(bless_t["center_set"].count), 18, 3)
+    rhs = next(c for c in calls if c[0] == "knm_t@cv")  # K3 at the sweep's shape
+    assert rhs[1:5] == masked[1:5] and rhs[5]().shape == (masked[2], 3)
     errs = chip_smoke.main_path_parity(calls)
-    assert set(errs) == set(chip_smoke.KERNELS) | {"quadform@ladder"}
+    assert set(errs) == set(chip_smoke.KERNELS) | {"knm_t@cv", "quadform@ladder"}
     for name, n, m, d, k, kern, _, library in calls:
         out = library()
         assert bool(torch.all(torch.isfinite(out)))

@@ -266,9 +266,11 @@ def test_every_launcher_is_defined_against_its_declaration():
     names = _launchers()
     assert names == ["launch_gram", "launch_falkon_matvec_fused", "launch_row_norms",
                      "launch_reduce_partials_blocked", "launch_knm_matvec",
-                     "launch_knm_matvec_masked", "launch_knm_t_partial", "launch_reduce_partials",
-                     "launch_rls_score_partial", "launch_rls_score_finish",
-                     "launch_quadform_partial", "launch_flash_attention", "launch_ssd"]
+                     "launch_knm_matvec_masked", "launch_knm_t_reg", "launch_knm_t_partial",
+                     "launch_reduce_partials", "launch_rls_score_partial",
+                     "launch_rls_score_finish", "launch_quadform_partial",
+                     "launch_flash_attention", "launch_ssd_chunk_state",
+                     "launch_ssd_state_passing", "launch_ssd_chunk_scan"]
     pkg = build.CSRC.parent
     cu = {s: (pkg / s).read_text() for s in build.SOURCES if s.endswith(".cu")}
     for name in names:
@@ -308,6 +310,19 @@ def test_binding_checks_every_launch():
     body = text[text.index("void rls_score("):text.index("// K6:")]
     assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
         "repro::launch_rls_score_partial", "repro::launch_rls_score_finish"]
+    # K3 (and the two-stage route's second stage): the tiled route's kernel and
+    # ordered sum, or the register route's row norms, kernel and blocked sum
+    body = text[text.index("void knm_t_launches("):text.index("}  // namespace")]
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_knm_t_partial", "repro::launch_reduce_partials", "repro::launch_row_norms",
+        "repro::launch_knm_t_reg", "repro::launch_reduce_partials_blocked"]
+    assert "TORCH_CHECK(d >= 1 && d <= 32" in body
+    # K9: the chunk states, the state passing, the chunk scan
+    body = text[text.index("void ssd("):text.index("PYBIND11_MODULE")]
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_ssd_chunk_state", "repro::launch_ssd_state_passing",
+        "repro::launch_ssd_chunk_scan"]
+    assert "ssd_smem_floats(" in body and "232448" in body
 
 
 def test_masked_stage_one_is_the_templated_k4_kernel():
@@ -403,7 +418,81 @@ def test_matvec_plan_main_path_shapes():
 def test_matvec_plan_takes_the_two_stage_route_above_the_cap(n, m, d, k):
     plan = fo.matvec_plan(n, m, d, k)
     assert plan.route == "two-stage" and plan == fo.matvec_plan(n, m, d, k)
+    # its second stage is K3, so its column and row chunks are K3's plan's
+    stage2 = fo.knm_t_plan(n, m, d, k)
+    assert (plan.kc, plan.n_chunks, plan.chunk_rows) == (stage2.kc,) + stage2[4:]
+
+
+@pytest.mark.parametrize("n,m,d,k", [(10 ** 6, 10 ** 4, 18, 1), (10 ** 6, 2978, 18, 5),
+                                     (10 ** 6, 16_384, 18, 1), (10 ** 6, 10 ** 5, 18, 5),
+                                     (70_001, 1_000, 18, 40), (0, 5, 3, 1), (1, 1, 1, 1),
+                                     (3_001, 1_023, 32, 9), (5 * 10 ** 6, 3, 7, 2)])
+def test_knm_t_plan_covers_every_row_and_center_once(n, m, d, k):
+    plan = fo.knm_t_plan(n, m, d, k)
+    assert plan == fo.knm_t_plan(n, m, d, k)  # a pure function of the shape
+    assert plan.route == "register" and plan.kc in fo.FUSED_KC and plan.kc >= min(k, 8)
+    # row chunks of whole 64-row tiles cover every row once, none too long
+    assert plan.chunk_rows % fo.KT_ROWS == 0 and plan.chunk_rows <= fo.KT_MAX_CHUNK_ROWS
+    assert (plan.n_chunks - 1) * plan.chunk_rows < max(n, 1) <= plan.n_chunks * plan.chunk_rows
+    assert 1 <= plan.n_chunks <= 65535
+    # 512-center slices and column chunks cover every center and column once
+    slices, col_chunks = -(-m // plan.slice_cols), -(-k // plan.kc)
+    assert (slices - 1) * plan.slice_cols < m <= slices * plan.slice_cols
+    assert (col_chunks - 1) * plan.kc < k <= col_chunks * plan.kc
+    assert 4 * fo.knm_t_smem_floats(d, plan.kc) <= fo.SMEM_BYTES
+    # about TARGET_BLOCKS blocks (whole tiles per chunk round it down a
+    # little), a few waves of 132 SMs, where the rows allow it
+    tiles = -(-max(n, 1) // fo.KT_ROWS)
+    blocks = slices * col_chunks * plan.n_chunks
+    assert blocks >= min(3 * fo.TARGET_BLOCKS // 4, tiles * slices * col_chunks)
+
+
+def test_knm_t_plan_main_path_shapes():
+    # the uniform SUSY-scale fit's right-hand side, the CV sweep's 5 folds,
+    # the classifier's 2 columns, and the two-stage route's second stage
+    assert fo.knm_t_plan(10 ** 6, 10 ** 4, 18, 1) == fo.KnmTPlan("register", 512, 64, 1, 103, 9728)
+    assert fo.knm_t_plan(10 ** 6, 2978, 18, 5)[:4] == ("register", 512, 64, 5)
+    assert fo.knm_t_plan(10 ** 6, 10 ** 4, 18, 2).kc == 2
+    assert fo.knm_t_plan(10 ** 6, 16_384, 18, 1)[4:] == (64, 15_680)
+
+
+@pytest.mark.parametrize("n,m,d,k", [(5_000, 100, 33, 1), (10 ** 6, 10 ** 4, 40, 5), (64, 1, 200, 1)])
+def test_knm_t_plan_takes_the_tiled_route_above_d_32(n, m, d, k):
+    plan = fo.knm_t_plan(n, m, d, k)
+    assert plan.route == "tiled" and plan.kc == 0
     assert (plan.n_chunks, plan.chunk_rows) == fo.row_chunks(n, m)
+
+
+def test_knm_t_register_kernel_keeps_g_in_registers():
+    # The plan's constants are the kernel's; its shared memory holds the
+    # staged x, norms and Y tiles only (knm_t_layout, term by term): the Gram
+    # values go from the family epilogue straight into the contraction.
+    text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    assert _constant(text, "KT_THREADS") * _constant(text, "KT_NJ") == fo.KT_SLICE
+    assert _constant(text, "KT_ROWS") == fo.KT_ROWS and _constant(text, "KT_DMAX") == fo.KT_DMAX
+    layout = text[text.index("inline KnmTLayout knm_t_layout("):]
+    assert "l.total = l.ys + 2 * nc * KT_ROWS;" in layout[:layout.index("return l;")]
+    for d, nc in ((1, 1), (18, 1), (32, 8)):
+        assert fo.knm_t_smem_floats(d, nc) == 2 * d * (64 + 4) + 2 * 64 + 2 * nc * 64
+    kernel = _kernel_body(text, "knm_t_reg_kernel")
+    assert kernel.count("tile_epilogue(fam, g, xni, zn, s);") == 1 and "gram_tile(" not in kernel
+    assert "cp_async4(" in kernel and "__shared__ TileSmem" not in kernel
+    assert "acc[j][c] += t8;" in kernel and "atomicAdd" not in text
+    launcher = text[text.index("void repro::launch_knm_t_reg("):]
+    assert "launch_knm_t_reg_bf<true>(" in launcher and "launch_knm_t_reg_bf<false>(" in launcher
+
+
+@pytest.mark.parametrize("k", [5, 9])
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_knm_t_panels_match_reference_kernel(kind, k):
+    # K3's plain version at the CV sweep's 5 columns and a 9-column panel
+    # (two of the register route's 8-column chunks) against the Pallas K3
+    x, z, _, y = _inputs(k=k, seed=5)
+    ref = np.asarray(jax_fo.knm_t(jnp.asarray(x), jnp.asarray(z), jnp.asarray(y), SIGMA, kind=kind,
+                                  interpret=True))
+    out = fo.knm_t(_t(x), _t(z), _t(y), SIGMA, kind=kind).numpy()
+    assert out.shape == ref.shape == (z.shape[0], k)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
 
 
 def test_rls_score_tile_matches_the_wrapper_and_bf16_is_a_template_parameter():

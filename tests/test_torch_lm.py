@@ -206,6 +206,50 @@ def test_plain_ssd_matches_the_recurrence_at_any_chunk():
         torch.testing.assert_close(fin, st, rtol=0, atol=2e-4 * float(st.abs().max()))
 
 
+@pytest.mark.parametrize("s,chunk", [(200, 32), (333, 64)])
+def test_plain_ssd_carries_the_state_over_many_chunks(s, chunk):
+    # more than four chunks, each starting from the state the ones before it
+    # carried: the port's plain version against the Pallas K9 in interpret mode
+    args = _ssd_inputs(2, s, 3, 16, 8, s + chunk)
+    y, st = so.ssd(*map(torch.from_numpy, args), chunk=chunk)
+    jy, jst = jax_ssd.ssd(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+    assert -(-s // chunk) > 4
+    _close(y, jy, 2e-4)
+    _close(st, jst, 2e-4)
+
+
+@pytest.mark.parametrize("s,h,p,n,chunk", [(2048, 128, 64, 16, 64), (2048, 128, 64, 16, 128),
+                                           (4100, 12, 64, 16, 64), (2053, 4, 32, 8, 128),
+                                           (5, 2, 8, 4, 64), (777, 3, 17, 5, 32),
+                                           (100, 70, 1, 1, 4), (64, 1, 512, 16, 16)])
+def test_ssd_plan_covers_every_row_and_head_once(s, h, p, n, chunk):
+    plan = so.ssd_plan(s, h, p, n, chunk)
+    assert plan == so.ssd_plan(s, h, p, n, chunk)  # a pure function of the shape
+    assert (plan.n_chunks - 1) * chunk < s <= plan.n_chunks * chunk
+    for heads in (plan.state_heads, plan.scan_heads):  # head groups cover every head once
+        groups = -(-h // heads)
+        assert 1 <= heads <= h and (groups - 1) * heads < h <= groups * heads
+    assert plan.scan_heads <= so.SCAN_HEADS
+    assert plan.state_heads <= so.STATE_MAX_HEADS
+    assert plan.state_heads == 1 or plan.state_heads * p <= so.STATE_COLS
+    assert plan.smem == so.smem_bytes(p, n, chunk) <= so.MAX_SMEM
+
+
+def test_ssd_plan_at_jambas_layer_and_the_kernels_constants():
+    # Jamba's Mamba layer at chunk 64: 32 chunks, 8 heads per block in both
+    # chunk kernels (16 x 32 x 4 = 2 048 blocks each), 82 176 bytes a block
+    assert so.ssd_plan(2048, 128, 64, 16, 64) == so.SsdPlan(32, 8, 8, 82_176)
+    assert so.ssd_plan(2048, 128, 64, 16, 128).smem <= so.MAX_SMEM
+    text = (REPO / "src" / "repro_torch" / "kernels" / "ssd" / "ssd.cu").read_text()
+    const = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert const["SCAN_HEADS_MAX"] == so.SCAN_HEADS and const["SCOLS"] == so.STATE_COLS
+    assert const["SHG_MAX"] == so.STATE_MAX_HEADS and const["RS"] == so.STATE_ROWS
+    # three launches, no float atomics, C B^T formed once per block before its heads
+    scan = text[text.index("ssd_chunk_scan_kernel(const T*"):text.index("template <typename T>\nvoid launch_state(")]
+    assert scan.index("C B^T once for the block's heads") < scan.index("for (int hl = 0; hl < nh; ++hl)")
+    assert "atomicAdd" not in text and ".tf32" not in text
+
+
 # -- the modules against the reference functions --------------------------------------------
 
 
@@ -477,7 +521,10 @@ def test_lm_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="need x"):
         so.ssd(torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 3), torch.zeros(2),
                torch.zeros(1, 8, 3), torch.zeros(1, 8, 3))
-    assert so.smem_bytes(64, 16, 64) == 4 * (64 * 64 + 2 * 64 * 17 + 64 * 65 + 64 * 17 + 3 * 64)
+    # the chunk scan's C B^T, L * C B^T, dt x, C^T, B^T (then 8 heads' dt and
+    # cum), the padded state, and the next head's x and state
+    assert so.smem_bytes(64, 16, 64) == 4 * (2 * 64 * 64 + 64 * 64 + 2 * 16 * 64 + 16 * 68
+                                             + 64 * 64 + 64 * 16)
     assert so.smem_bytes(64, 16, 128) <= so.MAX_SMEM < so.smem_bytes(64, 128, 128)
 
 
@@ -515,6 +562,7 @@ def test_chip_smoke_lm_phases_rehearse_on_the_cpu():
     assert srv["kernels"]["flash_attention"]["design"] == "mma.sync bf16"
     assert srv["kernels"]["ssd"]["shape"] == [2, 48, 8, 32, 16]
     assert srv["kernels"]["ssd"]["library_ms"] is None
+    assert srv["kernels"]["ssd"]["design_bound_ms"] > srv["kernels"]["ssd"]["bound_ms"]
     assert (srv["kernels"]["ssd"]["chunk"], srv["kernels"]["ssd_chunk128"]["chunk"]) == (64, 128)
     full = chip_smoke.lm_config()
     assert (full.n_layers, full.d_model, full.n_experts, full.dtype) == (8, 4096, 16, "bfloat16")
@@ -551,6 +599,14 @@ def test_chip_smoke_lm_bounds():
     ms1, _ = chip_smoke.ssd_bound(1, 65, 1, 1, 1, 64, 4)
     ms2, _ = chip_smoke.ssd_bound(1, 64, 1, 1, 1, 64, 4)
     assert ms1 > ms2
+    # the design's bound adds the chunk states (67 MB at chunk 64) written,
+    # read, rewritten and read, their decays, and a second read of x, B and dt
+    one, _ = chip_smoke.ssd_bound(4, 2048, 128, 64, 16, 64, 2)
+    states = chip_smoke.ssd_states_bytes(4, 2048, 128, 64, 16, 64)
+    assert states == 4 * 4 * 32 * 128 * 64 * 16
+    ms, by = chip_smoke.ssd_bound(4, 2048, 128, 64, 16, 64, 2, design=True)
+    extra = 4 * states + 8 * 4 * 32 * 128 + 2 * (4 * 2048 * 128 * 64 + 4 * 2048 * 16) + 4 * 4 * 2048 * 128
+    assert by == "bytes" and ms == pytest.approx(one + extra / 3.35e12 * 1e3) and ms > one
 
 
 @pytest.mark.parametrize("name,disturbed", [("jamba-v0.1-52b", True), ("phi3-mini-3.8b", False)])
