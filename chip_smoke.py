@@ -54,13 +54,17 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 ladder level above 1 024 centers, if there is one, and K7 at
                 the sweep's shape (10^6 rows, the BLESS M, phase 7's 5-fold
                 mask); K2's and K7's lines name the route matvec_plan chose,
-                K3's the route of knm_t_plan. K3 also at the sweep's shape
-                (10^6 rows, the BLESS M, its 5-column right-hand side), timed
-                and logged beside the record. Logged beside them, not gated:
+                K3's the route of knm_t_plan, K4's that of knm_matvec_plan and
+                K1's that of gram_plan. Timed and logged beside the record: K3
+                at the sweep's shape (10^6 rows, the BLESS M, its 5-column
+                right-hand side), K4 at the sweep's panel predict (10^6 rows,
+                the BLESS M, 5 columns) and K1 at the predictive variance's
+                slab (the rows of QUADFORM_SLAB_BYTES against M = 10^4).
+                Logged beside them, not gated:
                 K5 against K1 + K6 at M = 1 024 (the MAX_FUSED_M crossover)
                 on K5's rows, and K2 on the two-stage route at M = 16 384
-                (above the cluster route's cap; its second stage is K3's
-                register route).
+                (above the cluster route's cap; its first stage is K4's and
+                its second K3's register route).
   7. cv         exact k-fold CV through the front door on the same data and
                 phase 5's BLESS center set: KFoldSweep(folds=5, lams=(1e-5,
                 1e-6, 1e-7), iters=20), counts reset just before the sweep and
@@ -857,7 +861,7 @@ def _library_call(name: str, x, z, v, s: float, block: int = 16_384, w=None, mas
     def g(xb):
         return torch.exp(-torch.cdist(xb, z).square() * s)
     if name == "gram":
-        return g(z)
+        return g(x)
     if name == "quadform":
         return torch.sum((x @ w) * x, dim=1)
     if name == "rls_score":
@@ -907,10 +911,14 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
     rows' Gram block against W at M = 10^4 (the predictive variance), K7 runs
     on the training rows, the BLESS centers and the sweep's (n, folds) mask
     with an (M, folds) panel; "knm_t@cv" is K3 on the training rows, the
-    BLESS centers and the sweep's (n, folds) right-hand sides, and
+    BLESS centers and the sweep's (n, folds) right-hand sides, "knm_matvec@cv"
+    K4 on the same rows and centers with an (M, folds) panel (the sweep's
+    panel predict), "gram@slab" K1 on the test rows of one predictive-variance
+    slab (``QUADFORM_SLAB_BYTES``) against the M = 10^4 centers, and
     "quadform@ladder" K6 at the largest ladder level above 1 024 centers
-    (both timed and logged, not part of the kernels record)."""
+    (timed and logged, not part of the kernels record)."""
     from repro_torch.core import CudaBackend, make_kernel
+    from repro_torch.core.backend import QUADFORM_SLAB_BYTES
     from repro_torch.kernels import falkon_matvec_ops as fo
     from repro_torch.kernels import gram_ops as go
     from repro_torch.kernels import quadform_ops as qo
@@ -934,9 +942,16 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
     vb = torch.randn((zb.shape[0], folds), generator=torch.Generator(device=x.device)
                      .manual_seed(seed), device=x.device)
     y_cv = y[:, None] * mask  # the sweep's right-hand sides: one column per fold
+    slab = xte[:max(1, QUADFORM_SLAB_BYTES // (4 * m))]  # CudaBackend's variance slab
     extra = [("knm_t@cv", n, zb.shape[0], d, folds, lambda: fo.knm_t(x, zb, y_cv, sigma),
               lambda: fo.knm_t_reference(x, zb, y_cv, sigma),
-              lambda: _library_call("knm_t", x, zb, y_cv, s))]
+              lambda: _library_call("knm_t", x, zb, y_cv, s)),
+             ("knm_matvec@cv", n, zb.shape[0], d, folds, lambda: fo.knm_matvec(x, zb, vb, sigma),
+              lambda: fo.knm_matvec_reference(x, zb, vb, sigma),
+              lambda: _library_call("knm_matvec", x, zb, vb, s)),
+             ("gram@slab", slab.shape[0], m, d, m, lambda: go.gram(slab, z, sigma),
+              lambda: go.gram_reference(slab, z, sigma),
+              lambda: _library_call("gram", slab, z, None, s))]
     if bless_t["k6_ladder"] is not None:
         xl, zl, ml, rl, _ = bless_t["k6_ladder"]
         mk6, wk6 = inverse(kern, zl, ml, rl)
@@ -983,7 +998,7 @@ def main_path_parity(calls) -> dict:
                 f"max err/(atol+rtol|ref|)={ratio:.3f}")
         else:
             err, scale = _err(out, ref)
-            tol = GRAM_TOL if name == "gram" else KNM_TOL * scale
+            tol = GRAM_TOL if name.startswith("gram") else KNM_TOL * scale
             ok = err <= tol
             log(f"parity@main {name} (n={n}, M={m}, d={d}): max_abs_err={err:.3e} tol={tol:.3e}")
         errs[name] = err
@@ -998,8 +1013,10 @@ def main_path_parity(calls) -> dict:
 def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
     """CUDA-event times of each kernel, its plain version and the yardstick;
     K2's and K7's rows name the route ``matvec_plan`` gave them, K3's that of
-    ``knm_t_plan``."""
+    ``knm_t_plan``, K4's that of ``knm_matvec_plan`` and K1's that of
+    ``gram_plan``."""
     from repro_torch.kernels import falkon_matvec_ops as fo
+    from repro_torch.kernels import gram_ops as go
 
     times = {}
     for name, n, m, d, k, kern, plain, library in calls:
@@ -1012,6 +1029,20 @@ def kernel_times(calls, *, repeats: int = 5, plain_repeats: int = 2) -> dict:
         elif name == "rls_score":
             times[name]["design"] = ("on-chip Gram slab for two W column tiles, G W in 8x4 "
                                      "register tiles, depth split over two warp groups")
+        elif name.startswith("gram"):
+            plan = go.gram_plan(n, m, d)
+            times[name]["route"] = plan.route
+            times[name]["design"] = (
+                f"{plan.rows}-row stripes walking runs of {plan.run} {plan.cols}-column tiles, "
+                + ("16-byte" if plan.route == "wide" else "4-byte") + " streaming stores"
+                if plan.route != "tiled" else "shared 64x64 gram_tile")
+        elif name.startswith("knm_matvec"):
+            plan = fo.knm_matvec_plan(n, m, d, k)
+            times[name]["route"] = plan.route
+            times[name]["design"] = (
+                f"K3's register kernel on (z, x): G in registers, {plan.slice_rows}-row slices, "
+                f"{plan.n_chunks} center chunks"
+                if plan.route == "register" else "shared 64x64 gram_tile")
         elif name.startswith("knm_t"):
             plan = fo.knm_t_plan(n, m, d, k)
             times[name]["route"] = plan.route
@@ -1033,7 +1064,8 @@ def crossovers(device, times: dict, *, sigma: float = 4.0, seed: int = 0, d: int
     """Two times beside phase 6's, logged and not gated: K5 against K1 + K6 at
     M = MAX_FUSED_M on K5's main-path rows (where CudaBackend switches from
     the one to the other), and K2 on the two-stage route at an M above the
-    cluster route's cap (its second stage K3 by ``knm_t_plan``)."""
+    cluster route's cap (its first stage K4 by ``knm_matvec_plan``, its
+    second K3 by ``knm_t_plan``)."""
     from repro_torch.kernels import falkon_matvec_ops as fo
     from repro_torch.kernels import gram_ops as go
     from repro_torch.kernels import quadform_ops as qo
@@ -1054,7 +1086,10 @@ def crossovers(device, times: dict, *, sigma: float = 4.0, seed: int = 0, d: int
     v = torch.randn((m,), generator=g, device=device)
     plan = fo.matvec_plan(n, m, d, 1)
     b_ms, b_by = bound("falkon_matvec", n, m, d, 1)
+    stage1 = fo.knm_matvec_plan(n, m, d, 1)
     out["falkon_matvec_above_cap"] = {"shape": [n, m, d, 1], "route": plan.route,
+                                      "stage1_route": stage1.route,
+                                      "stage1_center_chunks": stage1.n_chunks,
                                       "stage2_route": fo.knm_t_plan(n, m, d, 1).route,
                                       "ms": _cuda_ms(lambda: fo.falkon_matvec(x, z, v, sigma), 2),
                                       "bound_ms": b_ms, "bound_by": b_by}

@@ -66,45 +66,133 @@ void knm_t_launches(const at::Tensor& x, const at::Tensor& z, const at::Tensor& 
     C10_CUDA_KERNEL_LAUNCH_CHECK();
   }
   repro::launch_knm_t_reg(x.data_ptr<float>(), z.data_ptr<float>(), y.data_ptr<float>(),
-                          xnorm.data_ptr<float>(), partial.data_ptr<float>(), n, m, d, k,
-                          static_cast<int>(kc), static_cast<int>(chunk_rows), dim(partial, 0),
+                          xnorm.data_ptr<float>(), nullptr, partial.data_ptr<float>(), n, m, d,
+                          k, static_cast<int>(kc), static_cast<int>(chunk_rows), dim(partial, 0),
                           static_cast<int>(fam), static_cast<float>(s), bf16, st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), out.data_ptr<float>(),
+  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), nullptr, out.data_ptr<float>(),
                                         static_cast<long long>(m) * k, dim(partial, 0), st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// k(x, z) a (n, k), times mask (n, k) elementwise unless mask is nullptr,
+// into out (n, k), by the route of falkon_matvec/ops.py's knm_matvec_plan: kc
+// > 0 the register route, K3's register kernel on the transposed problem
+// (k(X, Z) A = k(Z, X)^T A: x's rows are its thread-owned side, the centers
+// its streamed side): z's row norms into znorm (m,), then with n_chunks 1 the
+// kernel writes out itself (the mask applied as it writes), else it writes
+// partial (n_chunks, n, k) and the chunks are added in groups of 32 (the mask
+// applied to the sum); kc 0 the tiled route (d above 32). n >= 1; m may be 0
+// (the output is then 0).
+void knm_matvec_launches(const at::Tensor& x, const at::Tensor& z, const at::Tensor& a,
+                         const float* mask, at::Tensor& znorm, at::Tensor& partial,
+                         at::Tensor& out, int64_t kc, int64_t n_chunks, int64_t chunk_cols,
+                         int64_t fam, double s, bool bf16, cudaStream_t st) {
+  const int n = dim(x, 0), m = dim(z, 0), d = dim(x, 1), k = dim(a, 1);
+  TORCH_CHECK(out.size(0) == n && out.size(1) == k, "out must be (n, k)");
+  if (kc == 0 && mask != nullptr) {
+    repro::launch_knm_matvec_masked(x.data_ptr<float>(), z.data_ptr<float>(),
+                                    a.data_ptr<float>(), mask, out.data_ptr<float>(), n, m, d, k,
+                                    static_cast<int>(fam), static_cast<float>(s), bf16, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    return;
+  }
+  if (kc == 0) {
+    repro::launch_knm_matvec(x.data_ptr<float>(), z.data_ptr<float>(), a.data_ptr<float>(),
+                             out.data_ptr<float>(), n, m, d, k, static_cast<int>(fam),
+                             static_cast<float>(s), bf16, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    return;
+  }
+  check(znorm, "znorm");
+  TORCH_CHECK(znorm.numel() == m, "znorm must hold m = ", m, " values");
+  TORCH_CHECK(d >= 1 && d <= 32, "the register route takes 1 to 32 features, got ", d);
+  TORCH_CHECK(kc == 1 || kc == 2 || kc == 4 || kc == 5 || kc == 8,
+              "kc must be 0 (the tiled route), 1, 2, 4, 5 or 8, got ", kc);
+  TORCH_CHECK(chunk_cols > 0 && chunk_cols % 64 == 0 && n_chunks >= 1 &&
+                  n_chunks * chunk_cols >= m,
+              "n_chunks chunks of chunk_cols (a multiple of 64) centers must cover m");
+  const bool split = n_chunks > 1;
+  if (split) {
+    check(partial, "partial");
+    TORCH_CHECK(partial.dim() == 3 && partial.size(0) == n_chunks && partial.size(1) == n &&
+                    partial.size(2) == k,
+                "partial must be (n_chunks, n, k)");
+  }
+  if (m > 0) {
+    repro::launch_row_norms(z.data_ptr<float>(), znorm.data_ptr<float>(), m, d, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+  float* target = split ? partial.data_ptr<float>() : out.data_ptr<float>();
+  repro::launch_knm_t_reg(z.data_ptr<float>(), x.data_ptr<float>(), a.data_ptr<float>(),
+                          znorm.data_ptr<float>(), split ? nullptr : mask, target, m, n, d, k,
+                          static_cast<int>(kc), static_cast<int>(chunk_cols),
+                          static_cast<int>(n_chunks), static_cast<int>(fam),
+                          static_cast<float>(s), bf16, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  if (split) {
+    repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), mask, out.data_ptr<float>(),
+                                          static_cast<long long>(n) * k,
+                                          static_cast<int>(n_chunks), st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+  }
+}
+
 }  // namespace
 
-// K1: out (n, m) = k(x (n, d), z (m, d)).
-void gram(const at::Tensor& x, const at::Tensor& z, at::Tensor& out, int64_t fam, double s,
-          bool bf16) {
+// K1: out (n, m) = k(x (n, d), z (m, d)), by the route of gram/ops.py's
+// gram_plan: run > 0 the wide route (the rows' squared norms into xnorm (n,)
+// and znorm (m,), then blocks of 128 rows walking `run` 128-column tiles; vec
+// for 16-byte stores, which needs m % 4 == 0); run 0 the tiled route.
+void gram(const at::Tensor& x, const at::Tensor& z, at::Tensor& xnorm, at::Tensor& znorm,
+          at::Tensor& out, int64_t run, bool vec, int64_t fam, double s, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(out, "out");
-  if (x.size(0) == 0 || z.size(0) == 0) return;
+  const int n = dim(x, 0), m = dim(z, 0), d = dim(x, 1);
+  TORCH_CHECK(out.dim() == 2 && out.size(0) == n && out.size(1) == m, "out must be (n, m)");
+  if (n == 0 || m == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
-  repro::launch_gram(x.data_ptr<float>(), z.data_ptr<float>(), out.data_ptr<float>(),
-                     dim(x, 0), dim(z, 0), dim(x, 1), static_cast<int>(fam),
-                     static_cast<float>(s), bf16, at::cuda::getCurrentCUDAStream());
+  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
+  if (run == 0) {
+    repro::launch_gram(x.data_ptr<float>(), z.data_ptr<float>(), out.data_ptr<float>(), n, m, d,
+                       static_cast<int>(fam), static_cast<float>(s), bf16, st);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    return;
+  }
+  check(xnorm, "xnorm");
+  check(znorm, "znorm");
+  TORCH_CHECK(xnorm.numel() == n && znorm.numel() == m, "xnorm, znorm must hold n, m values");
+  TORCH_CHECK(d >= 1 && d <= 64, "the wide route takes 1 to 64 features, got ", d);
+  TORCH_CHECK(!vec || m % 4 == 0, "16-byte stores need m % 4 == 0, got m = ", m);
+  TORCH_CHECK(run >= 1 && ((m + 127) / 128 + run - 1) / run <= 65535,
+              "run ", run, " leaves more than 65535 column runs");
+  TORCH_CHECK(repro::gram_wide_smem_floats(d) * 4 <= 232448, "d = ", d, " needs more than 227 KB");
+  repro::launch_row_norms(x.data_ptr<float>(), xnorm.data_ptr<float>(), n, d, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_row_norms(z.data_ptr<float>(), znorm.data_ptr<float>(), m, d, st);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  repro::launch_gram_wide(x.data_ptr<float>(), z.data_ptr<float>(), xnorm.data_ptr<float>(),
+                          znorm.data_ptr<float>(), out.data_ptr<float>(), n, m, d,
+                          static_cast<int>(run), vec, static_cast<int>(fam),
+                          static_cast<float>(s), bf16, st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K4: out (n, k) = k(x, z) a (m, k).
-void knm_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& a, at::Tensor& out,
-                int64_t fam, double s, bool bf16) {
+// K4: out (n, k) = k(x, z) a (m, k); znorm (m,) and partial scratch, kc,
+// n_chunks and chunk_cols the plan of falkon_matvec/ops.py:knm_matvec_plan
+// (see knm_matvec_launches; partial is read only when n_chunks > 1).
+void knm_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& a, at::Tensor& znorm,
+                at::Tensor& partial, at::Tensor& out, int64_t kc, int64_t n_chunks,
+                int64_t chunk_cols, int64_t fam, double s, bool bf16) {
   check(x, "x");
   check(z, "z");
   check(a, "a");
   check(out, "out");
   if (x.size(0) == 0 || a.size(1) == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
-  repro::launch_knm_matvec(x.data_ptr<float>(), z.data_ptr<float>(), a.data_ptr<float>(),
-                           out.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1), dim(a, 1),
-                           static_cast<int>(fam), static_cast<float>(s), bf16,
-                           at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  knm_matvec_launches(x, z, a, nullptr, znorm, partial, out, kc, n_chunks, chunk_cols, fam, s,
+                      bf16, at::cuda::getCurrentCUDAStream());
 }
 
 // K3: out (m, k) = k(x, z)^T y (n, k); xnorm (n,) and partial scratch, kc
@@ -177,16 +265,20 @@ void falkon_matvec_fused(const at::Tensor& x, const at::Tensor& z, const at::Ten
       static_cast<int>(kc), static_cast<int>(chunk_rows), dim(partial, 0), static_cast<int>(fam),
       static_cast<float>(s), bf16, st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), out.data_ptr<float>(), m * k,
-                                        dim(partial, 0), st);
+  repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), nullptr, out.data_ptr<float>(),
+                                        m * k, dim(partial, 0), st);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K2 on the two-stage route: out (m, k) = k(x, z)^T (k(x, z) v (m, k)); t (n, k)
-// holds the first stage; xnorm, partial, kc and chunk_rows as in knm_t (the
-// plan of the second stage).
-void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v, at::Tensor& t,
-                   at::Tensor& xnorm, at::Tensor& partial, at::Tensor& out, int64_t kc,
+// K2 (mask None) or K7 on the two-stage route: out (m, k) column j =
+// k(x, z)^T diag(mask[:, j]) k(x, z) v[:, j]; mask (n, k); t (n, k) holds
+// the first stage, K4 by its plan (znorm, partial1, kc1, n_chunks1 and
+// chunk_cols1 as in knm_matvec), the mask multiplying it; xnorm, partial, kc
+// and chunk_rows as in knm_t (the plan of the second stage).
+void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
+                   const c10::optional<at::Tensor>& mask, at::Tensor& t, at::Tensor& znorm,
+                   at::Tensor& partial1, at::Tensor& xnorm, at::Tensor& partial, at::Tensor& out,
+                   int64_t kc1, int64_t n_chunks1, int64_t chunk_cols1, int64_t kc,
                    int64_t chunk_rows, int64_t fam, double s, bool bf16) {
   check(x, "x");
   check(z, "z");
@@ -194,45 +286,17 @@ void falkon_matvec(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v
   check(t, "t");
   check(partial, "partial");
   check(out, "out");
+  if (mask.has_value()) {
+    check(*mask, "mask");
+    TORCH_CHECK(mask->dim() == 2 && mask->size(0) == x.size(0) && mask->size(1) == v.size(1),
+                "mask must be (n, k) = (", x.size(0), ", ", v.size(1), "), got ", mask->sizes());
+  }
   if (z.size(0) == 0 || v.size(1) == 0) return;
   const c10::cuda::CUDAGuard guard(x.device());
   const cudaStream_t st = at::cuda::getCurrentCUDAStream();
-  if (x.size(0) > 0) {
-    repro::launch_knm_matvec(x.data_ptr<float>(), z.data_ptr<float>(), v.data_ptr<float>(),
-                             t.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1), dim(v, 1),
-                             static_cast<int>(fam), static_cast<float>(s), bf16, st);
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-  }
-  knm_t_launches(x, z, t, xnorm, partial, out, kc, chunk_rows, fam, s, bf16, st);
-}
-
-// K7 on the two-stage route: out (m, k) column j = k(x, z)^T diag(mask[:, j])
-// k(x, z) v[:, j]; mask (n, k); t (n, k) holds the masked first stage;
-// xnorm, partial, kc and chunk_rows as in knm_t.
-void falkon_matvec_masked(const at::Tensor& x, const at::Tensor& z, const at::Tensor& v,
-                          const at::Tensor& mask, at::Tensor& t, at::Tensor& xnorm,
-                          at::Tensor& partial, at::Tensor& out, int64_t kc, int64_t chunk_rows,
-                          int64_t fam, double s, bool bf16) {
-  check(x, "x");
-  check(z, "z");
-  check(v, "v");
-  check(mask, "mask");
-  check(t, "t");
-  check(partial, "partial");
-  check(out, "out");
-  TORCH_CHECK(mask.dim() == 2 && mask.size(0) == x.size(0) && mask.size(1) == v.size(1),
-              "mask must be (n, k) = (", x.size(0), ", ", v.size(1), "), got ", mask.sizes());
-  if (z.size(0) == 0 || v.size(1) == 0) return;
-  const c10::cuda::CUDAGuard guard(x.device());
-  const cudaStream_t st = at::cuda::getCurrentCUDAStream();
-  if (x.size(0) > 0) {
-    repro::launch_knm_matvec_masked(x.data_ptr<float>(), z.data_ptr<float>(),
-                                    v.data_ptr<float>(), mask.data_ptr<float>(),
-                                    t.data_ptr<float>(), dim(x, 0), dim(z, 0), dim(x, 1),
-                                    dim(v, 1), static_cast<int>(fam), static_cast<float>(s),
-                                    bf16, st);
-    C10_CUDA_KERNEL_LAUNCH_CHECK();
-  }
+  if (x.size(0) > 0)
+    knm_matvec_launches(x, z, v, mask.has_value() ? mask->data_ptr<float>() : nullptr, znorm,
+                        partial1, t, kc1, n_chunks1, chunk_cols1, fam, s, bf16, st);
   knm_t_launches(x, z, t, xnorm, partial, out, kc, chunk_rows, fam, s, bf16, st);
 }
 
@@ -372,14 +436,13 @@ void ssd(const at::Tensor& x, const at::Tensor& dt, const at::Tensor& a, const a
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("gram", &gram, "K1: dense Gram matrix");
-  m.def("knm_matvec", &knm_matvec, "K4: K_nM A");
+  m.def("gram", &gram, "K1: dense Gram matrix, 16-byte streaming stores on the wide route");
+  m.def("knm_matvec", &knm_matvec, "K4: K_nM A, G in registers on the register route");
   m.def("knm_t", &knm_t, "K3: K_nM^T Y, G in registers, fixed-order sum of row chunks");
   m.def("falkon_matvec_fused", &falkon_matvec_fused,
         "K2 or K7 on the cluster route: one Gram build per call");
-  m.def("falkon_matvec", &falkon_matvec, "K2 on the two-stage route: K_nM^T K_nM V");
-  m.def("falkon_matvec_masked", &falkon_matvec_masked,
-        "K7 on the two-stage route: K_nM^T diag(mask_j) K_nM v_j per column");
+  m.def("falkon_matvec", &falkon_matvec,
+        "K2 or K7 on the two-stage route: K_nM^T diag(mask_j) K_nM v_j per column");
   m.def("rls_score", &rls_score, "K5: fused Eq. 3 score, fixed-order two-stage sum");
   m.def("quadform", &quadform, "K6: rowsum((G W) * G), fixed-order two-stage sum");
   m.def("flash_attention", &flash_attention, "K8: causal or bidirectional GQA attention");

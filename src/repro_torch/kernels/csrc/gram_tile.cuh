@@ -1,5 +1,11 @@
 // Shared Gram-tile device function for the hand-written Hopper kernels.
 //
+// Since the main paths' kernels build their Gram values in registers (K1's
+// wide route, K2/K7's cluster route, K3's and K4's register routes, K5),
+// `gram_tile` serves only the routes for wide features: K1's tiled route
+// (d above 64) and K3's and K4's tiled routes (d above 32). The family ids,
+// `family_epilogue` and `round_bf16` below are every kernel's.
+//
 // Counterpart of `_gram_tile` (src/repro/kernels/falkon_matvec/falkon_matvec.py)
 // and `_gram_kernel` (src/repro/kernels/gram/gram.py): one block of 256 threads
 // builds a TILE x TILE block of k(X, Z). The feature axis is staged through

@@ -12,9 +12,19 @@
 
 namespace repro {
 
-// K1: out (n, m) = k(x (n, d), z (m, d)).
+// K1 on the tiled route (d above 64): out (n, m) = k(x (n, d), z (m, d)).
 void launch_gram(const float* x, const float* z, float* out, int n, int m, int d, int fam,
                  float s, bool bf16, cudaStream_t st);
+
+// K1 on the wide route (d <= 64): the same from the rows' squared norms xnorm
+// (n,) and znorm (m,) (launch_row_norms), blocks of 128 rows walking `run`
+// 128-column tiles; vec (m % 4 == 0) writes 16-byte stores, else 4-byte.
+void launch_gram_wide(const float* x, const float* z, const float* xnorm, const float* znorm,
+                      float* out, int n, int m, int d, int run, bool vec, int fam, float s,
+                      bool bf16, cudaStream_t st);
+
+// Floats of dynamic shared memory one block of launch_gram_wide takes at d features.
+long long gram_wide_smem_floats(int d);
 
 // K2 and K7 on the cluster route, each Gram value built once: partial
 // (n_chunks, m, k) holds, per row chunk of chunk_rows rows (a multiple of 16),
@@ -30,25 +40,28 @@ void launch_falkon_matvec_fused(const float* x, const float* z, const float* v,
                                 int chunk_rows, int n_chunks, int fam, float s, bool bf16,
                                 cudaStream_t st);
 
-// The first launch of the cluster route and of K3's register route: out (n,)
-// = the squared norms of x's rows.
+// The first launch of the cluster route, of K3's and K4's register routes
+// and of K1's wide route: out (n,) = the squared norms of x's rows.
 void launch_row_norms(const float* x, float* out, int n, int d, cudaStream_t st);
 
-// The last launch of the cluster route and of K3's register route: out[i] =
-// sum over chunks of partial[chunk, i], i < len, in groups of 32 chunks (each
-// group in index order, then the groups).
-void launch_reduce_partials_blocked(const float* partial, float* out, long long len,
-                                    int n_chunks, cudaStream_t st);
+// The last launch of the cluster route and of K3's and K4's register routes:
+// out[i] = sum over chunks of partial[chunk, i], i < len, in groups of 32
+// chunks (each group in index order, then the groups), times mask[i] unless
+// mask is nullptr (K7's stage 1 over several center chunks).
+void launch_reduce_partials_blocked(const float* partial, const float* mask, float* out,
+                                    long long len, int n_chunks, cudaStream_t st);
 
 // Floats of dynamic shared memory one block of launch_falkon_matvec_fused
 // takes for a slice of `slice` centers, d features and kc columns.
 long long falkon_fused_smem_floats(int slice, int d, int kc);
 
-// K4, and stage 1 of K2 on the two-stage route: out (n, k) = k(x, z) a (m, k).
+// K4 on the tiled route (d above 32), and stage 1 of K2 on the two-stage
+// route there: out (n, k) = k(x, z) a (m, k).
 void launch_knm_matvec(const float* x, const float* z, const float* a, float* out, int n,
                        int m, int d, int k, int fam, float s, bool bf16, cudaStream_t st);
 
-// K7, stage 1 on the two-stage route: out (n, k) = (k(x, z) a (m, k)) * mask (n, k), elementwise.
+// K7, stage 1 on the two-stage route at d above 32: out (n, k) = (k(x, z) a (m, k)) * mask (n, k),
+// elementwise.
 void launch_knm_matvec_masked(const float* x, const float* z, const float* a, const float* mask,
                               float* out, int n, int m, int d, int k, int fam, float s,
                               bool bf16, cudaStream_t st);
@@ -57,10 +70,14 @@ void launch_knm_matvec_masked(const float* x, const float* z, const float* a, co
 // (d <= 32): partial (n_chunks, m, k) holds, per chunk of chunk_rows rows (a
 // multiple of 64), that chunk's k(x, z)^T y, from x's row norms xnorm (n,)
 // (launch_row_norms); kc (1, 2, 4, 5 or 8) output columns per block. The
-// chunks are added by launch_reduce_partials_blocked.
+// chunks are added by launch_reduce_partials_blocked. mask (m, k), or
+// nullptr, multiplies each sum as it is written (n_chunks 1 only). K4's
+// register route, and stage 1 of the two-stage route at d <= 32, call it with
+// x and z swapped: k(X, Z) A = k(Z, X)^T A.
 void launch_knm_t_reg(const float* x, const float* z, const float* y, const float* xnorm,
-                      float* partial, int n, int m, int d, int k, int kc, int chunk_rows,
-                      int n_chunks, int fam, float s, bool bf16, cudaStream_t st);
+                      const float* mask, float* partial, int n, int m, int d, int k, int kc,
+                      int chunk_rows, int n_chunks, int fam, float s, bool bf16,
+                      cudaStream_t st);
 
 // The same on the tiled route (d above 32), first half: partial
 // (n_chunks, m, k) holds, per chunk of chunk_rows rows, that chunk's

@@ -21,9 +21,31 @@
 // the 10^10 values takes ~12 ms at the card's issue rate. They are bound by
 // operations.
 //
-// K4 (the shared `gram_tile` of ../csrc/gram_tile.cuh): one block per 64-row
-// tile of X loops over M in 64-center chunks and accumulates its (64, k)
-// output rows in registers. No reduction across blocks.
+// K4 (knm_matvec) is K3's register kernel on the transposed problem:
+// k(X, Z) A = k(Z, X)^T A, so the rows of X take the place of K3's centers
+// and the centers that of its rows. Two routes, chosen by shape alone
+// (ops.knm_matvec_plan):
+//  * "register" (d <= 32): `knm_t_reg_kernel` with x and z swapped, grid
+//    (512-row slices, center chunks, column chunks of NC). Each thread keeps
+//    its two rows' x (all of d) and norms in registers for the whole call;
+//    the block walks its center chunk in 64-center tiles, each staged
+//    feature-major with z's norms (one row_norms launch over z) and the
+//    tile's rows of A by cp.async, double-buffered; per 8 centers each thread
+//    builds its 2 x 8 Gram values in straight-line code, switches the family
+//    epilogue once and adds the 8-term sums of G A into its (2, NC)
+//    accumulator. G never leaves the registers. What holds the tiled
+//    kernel back at these shapes is the barrier chain of the shared 64 x 64
+//    `gram_tile` per 64 centers (DK = 8 staging, the norms re-reduced, G
+//    through shared memory) and a contraction on 64 of 256 threads at
+//    k = 1; this route has neither. Where the row slices alone give few
+//    blocks (n = 10^5: 196) the centers are split into chunks, each writing
+//    partial[chunk, n, k], added by `reduce_partials_blocked` in a fixed
+//    order; with one chunk the kernel writes the output itself. K7's stage 1 multiplies the complete sum by
+//    the mask exactly once: as the kernel writes it (one chunk) or in the
+//    reduce (several), so an all-ones mask gives K2's stage 1 bit for bit.
+//  * "tiled" (d above 32, where x no longer fits in registers):
+//    `knm_matvec_kernel<MASKED>` on the shared `gram_tile`, one block per
+//    64-row tile looping over M in 64-center chunks.
 //
 // K3 (knm_t): the TPU kernel accumulates one resident (M, k) block over a
 // *sequential* grid. Hopper blocks run in parallel and in no order, so the
@@ -97,10 +119,10 @@
 //    itself, well below the card's issue rate with one 16-warp block per
 //    SM, and the per-tile chain of barriers, the exchange and step 4 around
 //    it.
-//  * "two-stage" (above that cap): stage 1 is the K4 kernel writing T (n, k)
-//    to device memory (knm_matvec_kernel<MASKED>: K7 multiplies each output
-//    by the mask as it is written), stage 2 K3 on T by K3's own plan. Twice
-//    the Gram builds of the fused reference.
+//  * "two-stage" (above that cap): stage 1 is K4 writing T (n, k) to device
+//    memory by K4's own plan (K7 multiplies T by the mask), stage 2 K3 on T
+//    by K3's own plan. Twice the Gram builds of the fused reference; at
+//    d <= 32 both run the register kernel.
 //  * Rows >= n and centers >= M are masked inside the kernels; nothing is
 //    padded, d and k are used as given.
 #include <cooperative_groups.h>
@@ -670,9 +692,11 @@ void launch_fused_kc(const float* x, const float* z, const float* v, const float
 // groups of RGROUP chunks in index order, each summed in order, and the
 // group sums added in order: a fixed order, and no chain longer than
 // RGROUP + n_chunks / RGROUP for the cluster route's ~1 000 row chunks.
+// With a mask (K7's split stage 1) the sum is multiplied by mask[i].
 constexpr int RGROUP = 32;
 
 __global__ void reduce_partials_blocked_kernel(const float* __restrict__ partial,
+                                               const float* __restrict__ mask,
                                                float* __restrict__ out, long long len,
                                                int n_chunks) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -684,7 +708,7 @@ __global__ void reduce_partials_blocked_kernel(const float* __restrict__ partial
       group += partial[(long long)ch * len + i];
     total += group;
   }
-  out[i] = total;
+  out[i] = mask != nullptr ? total * mask[i] : total;
 }
 
 // ---------------------------------------------------------------------------
@@ -757,12 +781,15 @@ static_assert(KT_DMAX == 32, "the switch below lists 32 features");
 // sum_i G[i, j] Y[i, c] (an 8-term chain) into its accumulator of (j, c):
 // G never leaves the registers, and no two threads share an output. Rows
 // past rend are staged as zeros (x, norm and Y), so they add exactly 0.
+// With a mask (K7's stage 1 on one chunk: partial is the output) each sum is
+// multiplied by its mask entry as it is written. K4 runs this kernel with x
+// and z swapped (see the header).
 template <int NC, bool BF16>
 __global__ void __launch_bounds__(KT_THREADS, 2)
 knm_t_reg_kernel(const float* __restrict__ x, const float* __restrict__ z,
                  const float* __restrict__ y, const float* __restrict__ xnorm,
-                 float* __restrict__ partial, int n, int m, int d, int k, int chunk_rows,
-                 int fam, float s) {
+                 const float* __restrict__ mask, float* __restrict__ partial, int n, int m,
+                 int d, int k, int chunk_rows, int fam, float s) {
   extern __shared__ __align__(16) float dyn[];
   const KnmTLayout L = knm_t_layout(d, NC);
   const int tid = threadIdx.x;
@@ -871,10 +898,10 @@ knm_t_reg_kernel(const float* __restrict__ x, const float* __restrict__ z,
 #pragma unroll
     for (int j = 0; j < KT_NJ; ++j) {
       if (j0 + j >= m) break;
-      float* out = partial + (static_cast<long long>(chunk) * m + j0 + j) * k + kc0;
+      const long long o = (static_cast<long long>(chunk) * m + j0 + j) * k + kc0;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        if (c < kw) out[c] = acc[j][c];
+        if (c < kw) partial[o + c] = mask != nullptr ? acc[j][c] * mask[o + c] : acc[j][c];
     }
   }
 }
@@ -882,8 +909,8 @@ knm_t_reg_kernel(const float* __restrict__ x, const float* __restrict__ z,
 // The instantiation for NC output columns per block (1, 2, 4, 5 or 8).
 template <bool BF16>
 void launch_knm_t_reg_bf(const float* x, const float* z, const float* y, const float* xnorm,
-                         float* partial, int n, int m, int d, int k, int kc, int chunk_rows,
-                         int n_chunks, int fam, float s, cudaStream_t st) {
+                         const float* mask, float* partial, int n, int m, int d, int k, int kc,
+                         int chunk_rows, int n_chunks, int fam, float s, cudaStream_t st) {
   const auto kernel = kc == 1   ? knm_t_reg_kernel<1, BF16>
                       : kc == 2 ? knm_t_reg_kernel<2, BF16>
                       : kc == 4 ? knm_t_reg_kernel<4, BF16>
@@ -891,7 +918,8 @@ void launch_knm_t_reg_bf(const float* x, const float* z, const float* y, const f
                                 : knm_t_reg_kernel<8, BF16>;
   const int smem = knm_t_layout(d, kc).total * static_cast<int>(sizeof(float));
   const dim3 grid((m + KT_SLICE - 1) / KT_SLICE, n_chunks, (k + kc - 1) / kc);
-  kernel<<<grid, KT_THREADS, smem, st>>>(x, z, y, xnorm, partial, n, m, d, k, chunk_rows, fam, s);
+  kernel<<<grid, KT_THREADS, smem, st>>>(x, z, y, xnorm, mask, partial, n, m, d, k, chunk_rows,
+                                         fam, s);
 }
 
 // out[i] = |x_i|^2, the features summed in order; one thread per row.
@@ -932,15 +960,15 @@ void repro::launch_knm_t_partial(const float* x, const float* z, const float* y,
 }
 
 void repro::launch_knm_t_reg(const float* x, const float* z, const float* y,
-                             const float* xnorm, float* partial, int n, int m, int d, int k,
-                             int kc, int chunk_rows, int n_chunks, int fam, float s, bool bf16,
-                             cudaStream_t st) {
+                             const float* xnorm, const float* mask, float* partial, int n, int m,
+                             int d, int k, int kc, int chunk_rows, int n_chunks, int fam, float s,
+                             bool bf16, cudaStream_t st) {
   if (bf16)
-    launch_knm_t_reg_bf<true>(x, z, y, xnorm, partial, n, m, d, k, kc, chunk_rows, n_chunks, fam,
-                              s, st);
+    launch_knm_t_reg_bf<true>(x, z, y, xnorm, mask, partial, n, m, d, k, kc, chunk_rows,
+                              n_chunks, fam, s, st);
   else
-    launch_knm_t_reg_bf<false>(x, z, y, xnorm, partial, n, m, d, k, kc, chunk_rows, n_chunks,
-                               fam, s, st);
+    launch_knm_t_reg_bf<false>(x, z, y, xnorm, mask, partial, n, m, d, k, kc, chunk_rows,
+                               n_chunks, fam, s, st);
 }
 
 void repro::launch_reduce_partials(const float* partial, float* out, long long len,
@@ -967,11 +995,11 @@ void repro::launch_falkon_matvec_fused(const float* x, const float* z, const flo
                            chunk_rows, n_chunks, fam, s, bf16, st);
 }
 
-void repro::launch_reduce_partials_blocked(const float* partial, float* out, long long len,
-                                           int n_chunks, cudaStream_t st) {
+void repro::launch_reduce_partials_blocked(const float* partial, const float* mask, float* out,
+                                           long long len, int n_chunks, cudaStream_t st) {
   const int threads = 256;
   reduce_partials_blocked_kernel<<<(unsigned)((len + threads - 1) / threads), threads, 0, st>>>(
-      partial, out, len, n_chunks);
+      partial, mask, out, len, n_chunks);
 }
 
 void repro::launch_row_norms(const float* x, float* out, int n, int d, cudaStream_t st) {

@@ -20,8 +20,9 @@ pure function of the shape (never of a failure):
   shared memory); the blocks exchange their shares of T = K_nM V through
   distributed shared memory. Taken for d <= 64 and M up to the cap that
   budget sets (12 288 at d = 18 and k = 1).
-* ``"two-stage"`` (larger M or d): the K4 kernel writes T (n, k) to device
-  memory and K3's kernels form K_nM^T T, building every Gram value twice.
+* ``"two-stage"`` (larger M or d): K4 writes T (n, k) to device memory by
+  ``knm_matvec_plan`` and K3 forms K_nM^T T by ``knm_t_plan``, building every
+  Gram value twice.
 
 Both add their row chunks' partial sums in a fixed order (bit-repeatable
 for a given shape), and both count under ``falkon_matvec.launches`` (K2) or
@@ -38,6 +39,18 @@ K3 (and the two-stage route's second stage) takes the route of
   ``KT_MAX_CHUNK_ROWS`` rows, and are added in groups of 32.
 * ``"tiled"`` (d above 32): the kernel on the shared 64 x 64 ``gram_tile``,
   its chunks from ``row_chunks``.
+
+K4 (and the two-stage route's first stage) takes the route of
+``knm_matvec_plan(n, M, d, k)``:
+
+* ``"register"`` (d <= 32): K3's register kernel on the transposed problem,
+  k(X, Z) A = k(Z, X)^T A. Each block owns 512 rows, two per thread, with
+  their x in the thread's registers, and walks its centers in 64-center
+  tiles; where the row slices alone give too few blocks, the centers are
+  split into chunks (about ``TARGET_BLOCKS`` blocks in all, none longer than
+  ``KT_MAX_CHUNK_ROWS`` centers), added in groups of 32.
+* ``"tiled"`` (d above 32): the kernel on the shared ``gram_tile``, one block
+  per 64-row tile walking all M centers.
 """
 from __future__ import annotations
 
@@ -136,6 +149,40 @@ def knm_t_plan(n: int, m: int, d: int, k: int) -> KnmTPlan:
     return KnmTPlan("register", KT_SLICE, KT_ROWS, kc, max(1, -(-n // chunk_rows)), chunk_rows)
 
 
+class KnmMatvecPlan(NamedTuple):
+    """How K4 runs at one shape: ``route`` "register" (``slice_rows`` rows
+    per block, centers in tiles of ``cols``, ``kc`` output columns per block)
+    or "tiled"; the centers are summed in ``n_chunks`` chunks of
+    ``chunk_cols``."""
+
+    route: str
+    slice_rows: int
+    cols: int
+    kc: int
+    n_chunks: int
+    chunk_cols: int
+
+
+def knm_matvec_plan(n: int, m: int, d: int, k: int) -> KnmMatvecPlan:
+    """The route of K4 for x (n, d), M centers and k columns: the register
+    route for d <= 32, else the tiled route (one chunk of all M). Center
+    chunks of whole 64-center tiles: as many as bring the grid nearest to
+    TARGET_BLOCKS blocks (one where the row slices alone come near it), and at
+    least as many as keep each chunk within KT_MAX_CHUNK_ROWS centers. A
+    function of the shape alone."""
+    tiles = max(1, -(-m // KT_ROWS))
+    if d > KT_DMAX:
+        return KnmMatvecPlan("tiled", TILE, TILE, 0, 1, tiles * KT_ROWS)
+    kc = _kc(k)
+    per_chunk = max(1, -(-n // KT_SLICE)) * -(-max(k, 1) // kc)  # blocks per center chunk
+    want = max((TARGET_BLOCKS + per_chunk // 2) // per_chunk,
+               -(-tiles // (KT_MAX_CHUNK_ROWS // KT_ROWS)), 1)
+    want = min(want, tiles, 65535)
+    chunk_cols = -(-tiles // want) * KT_ROWS
+    return KnmMatvecPlan("register", KT_SLICE, KT_ROWS, kc, max(1, -(-m // chunk_cols)),
+                         chunk_cols)
+
+
 class MatvecPlan(NamedTuple):
     """How K2 / K7 run at one shape: ``route`` "cluster" (``cluster`` blocks
     of ``slice_cols`` centers each, ``kc`` output columns per work item) or
@@ -232,13 +279,20 @@ def _matvec(x, z, vp, mp, fam_id: int, s: float, bf16: bool) -> torch.Tensor:
                                 plan.kc, plan.chunk_rows, fam_id, s, bf16)
         return out
     t = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    if mp is None:
-        ext.falkon_matvec(x, z, vp, t, xnorm, partial, out, plan.kc, plan.chunk_rows, fam_id, s,
-                          bf16)
-    else:
-        ext.falkon_matvec_masked(x, z, vp, mp, t, xnorm, partial, out, plan.kc, plan.chunk_rows,
-                                 fam_id, s, bf16)
+    stage1 = knm_matvec_plan(n, m, d, k)
+    znorm, partial1 = _knm_matvec_scratch(stage1, n, m, k, x.device)
+    ext.falkon_matvec(x, z, vp, mp, t, znorm, partial1, xnorm, partial, out, stage1.kc,
+                      stage1.n_chunks, stage1.chunk_cols, plan.kc, plan.chunk_rows, fam_id, s,
+                      bf16)
     return out
+
+
+def _knm_matvec_scratch(plan: KnmMatvecPlan, n: int, m: int, k: int, device):
+    """K4's scratch for ``plan``: z's row norms (m,) and, where the centers
+    are split, the chunks' partial sums (n_chunks, n, k)."""
+    partial = torch.empty((plan.n_chunks if plan.n_chunks > 1 else 0, n, k),
+                          dtype=torch.float32, device=device)
+    return torch.empty((m,), dtype=torch.float32, device=device), partial
 
 
 def _as_mask(mask: torch.Tensor, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -302,8 +356,13 @@ def knm_matvec(x: torch.Tensor, z: torch.Tensor, alpha: torch.Tensor, sigma: flo
     fam_id = cuda_family_id(kind)
     x, z = _check_xz(x, z)
     ap, squeeze = _as_panel(alpha, z.shape[0], "alpha")
-    out = torch.empty((x.shape[0], ap.shape[1]), dtype=torch.float32, device=x.device)
-    build.extension().knm_matvec(x, z, ap, out, fam_id, s, bf16)
+    n, d = x.shape
+    m, k = ap.shape
+    plan = knm_matvec_plan(n, m, d, k)
+    znorm, partial = _knm_matvec_scratch(plan, n, m, k, x.device)
+    out = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    build.extension().knm_matvec(x, z, ap, znorm, partial, out, plan.kc, plan.n_chunks,
+                                 plan.chunk_cols, fam_id, s, bf16)
     knm_matvec.launches += 1
     return out[:, 0] if squeeze else out
 

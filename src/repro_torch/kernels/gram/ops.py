@@ -3,8 +3,22 @@
 A CUDA tensor goes to the kernel (``gram.cu``) or the call raises; a CPU
 tensor goes to the plain version (``ref.py``). ``gram.launches`` counts the
 kernel launches.
+
+The kernel takes the route of ``gram_plan(n, m, d)``, a pure function of the
+shape (never of a failure):
+
+* ``"wide"`` (d <= 64, m % 4 == 0): each block keeps a 128-row stripe of X in
+  shared memory and walks a run of 128-column Z tiles staged by ``cp.async``
+  (double-buffered); each thread writes its 4 consecutive columns of a row as
+  one 16-byte streaming store. The run length brings the grid to about
+  ``TARGET_BLOCKS`` blocks.
+* ``"scalar"`` (d <= 64, m % 4 != 0, where rows are not 16-byte aligned): the
+  same kernel with 4-byte stores.
+* ``"tiled"`` (d above 64): 64 x 64 output tiles on the shared ``gram_tile``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -13,6 +27,38 @@ from .. import build
 from ..common import is_cpu, require_cuda
 from .ref import gram_ref
 
+#: the wide route's shapes (gram.cu): rows per block stripe, columns per Z
+#: tile, the largest d; the blocks its grid aims at (about a dozen waves of
+#: the two blocks an SM holds, on 132 SMs).
+ROWS = 128
+COLS = 128
+DMAX = 64
+TARGET_BLOCKS = 3072
+
+
+class GramPlan(NamedTuple):
+    """How K1 runs at one shape: ``route`` "wide", "scalar" or "tiled";
+    blocks of ``rows`` rows, each walking ``run`` tiles of ``cols`` columns
+    (the tiled route: one 64 x 64 tile per block)."""
+
+    route: str
+    rows: int
+    cols: int
+    run: int
+
+
+def gram_plan(n: int, m: int, d: int) -> GramPlan:
+    """The route of K1 for x (n, d) and z (m, d): the wide route for d <= 64
+    (scalar stores where m % 4 != 0), else the tiled route. The run of
+    column tiles per block brings the grid nearest to TARGET_BLOCKS blocks,
+    with at most 65535 runs across the columns. A function of the shape
+    alone."""
+    if d > DMAX:
+        return GramPlan("tiled", 64, 64, 1)
+    stripes, tiles = max(1, -(-n // ROWS)), max(1, -(-m // COLS))
+    run = (stripes * tiles + TARGET_BLOCKS // 2) // TARGET_BLOCKS
+    run = min(max(run, 1, -(-tiles // 65535)), tiles)
+    return GramPlan("wide" if m % 4 == 0 else "scalar", ROWS, COLS, run)
 
 
 def cuda_family_id(kind: str) -> int:
@@ -44,8 +90,12 @@ def gram(x: torch.Tensor, z: torch.Tensor, sigma: float = 1.0, *, kind: str = "g
     m = z.shape[0]
     if d < 1:
         raise ValueError("the CUDA kernels need at least one feature")
+    plan = gram_plan(n, m, d)
+    xnorm = torch.empty((n,), dtype=torch.float32, device=x.device)
+    znorm = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
-    build.extension().gram(x, z, out, fam_id, inv_scale, bf16)
+    build.extension().gram(x, z, xnorm, znorm, out, 0 if plan.route == "tiled" else plan.run,
+                           plan.route == "wide", fam_id, inv_scale, bf16)
     gram.launches += 1
     return out
 

@@ -74,6 +74,73 @@ def test_knm_kernels_match_plain(dev, kind, bf16, k):
         _close(out, ref, rel * float(ref.abs().max()))
 
 
+# K1's routes: wide (16-byte stores, several column runs), scalar (m % 4 != 0),
+# at the d cap, and tiled above it.
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("shape", [(10_007, 4_100, 18), (3_001, 2_977, 18), (129, 8, 64),
+                                   (777, 132, 65), (1, 1, 1), (70, 1_030, 3),
+                                   (20_001, 5_001, 7)])
+def test_gram_routes_match_plain(dev, kind, bf16, shape):
+    n, m, d = shape
+    plan = go.gram_plan(n, m, d)
+    assert plan.route == ("tiled" if d > go.DMAX else "wide" if m % 4 == 0 else "scalar")
+    x, z, _, _ = _inputs(dev, n, m, d, 1, seed=30)
+    ref = go.gram_reference(x, z, 2.5, kind=kind, bf16=bf16)
+    tol = (3e-2 if bf16 else 2e-5) * max(1.0, float(ref.abs().max()))
+    _close(go.gram(x, z, 2.5, kind=kind, bf16=bf16), ref, tol)
+
+
+@pytest.mark.parametrize("m,d", [(10_000, 18), (2_977, 18), (300, 65)])
+def test_gram_of_centers_is_symmetric_and_repeats_bit_for_bit(dev, m, d):
+    _, z, _, _ = _inputs(dev, 1, m, d, 1, seed=31)
+    kernels.reset_launch_counts()
+    kmm = go.gram(z, z, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(kmm, kmm.T) and torch.equal(kmm, go.gram(z, z, 4.0))
+    assert kernels.launch_counts()["gram"] == 2
+
+
+# K4's routes: the register route with and without a center split (ragged n
+# and M), every family, bf16, vector and panels of 2, 5 and 40 columns.
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("k", [None, 2, 5, 40])
+@pytest.mark.parametrize("split", [True, False])
+def test_knm_matvec_register_route_matches_plain(dev, kind, bf16, k, split):
+    n, m = (20_011, 1_023) if split else (1_000_003, 77)
+    x, z, v, _ = _inputs(dev, n, m, 18, k or 1, seed=32)
+    if k is None:
+        v = v[:, 0]
+    plan = fo.knm_matvec_plan(n, m, 18, k or 1)
+    assert plan.route == "register" and (plan.n_chunks > 1) == split
+    kw = dict(kind=kind, bf16=bf16)
+    ref = fo.knm_matvec_reference(x, z, v, 3.0, **kw)
+    _close(fo.knm_matvec(x, z, v, 3.0, **kw), ref, (3e-2 if bf16 else 1e-4) * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+@pytest.mark.parametrize("n,m,d,k", [(3_001, 1_023, 32, 5), (4_999, 77, 33, 3), (65, 700, 40, 1)])
+def test_knm_matvec_routes_at_and_above_d_32_match_plain(dev, kind, n, m, d, k):
+    x, z, v, _ = _inputs(dev, n, m, d, k, seed=33)
+    assert fo.knm_matvec_plan(n, m, d, k).route == ("register" if d <= fo.KT_DMAX else "tiled")
+    ref = fo.knm_matvec_reference(x, z, v, 3.0, kind=kind)
+    _close(fo.knm_matvec(x, z, v, 3.0, kind=kind), ref, 1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n,m,k", [(100_000, 10_000, 1), (20_011, 1_023, 5), (1_000_003, 77, 2),
+                                   (9, 1, 1)])
+def test_knm_matvec_repeats_bit_for_bit(dev, n, m, k):
+    x, z, v, _ = _inputs(dev, n, m, 18, k, seed=34)
+    kernels.reset_launch_counts()
+    first = fo.knm_matvec(x, z, v, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, fo.knm_matvec(x, z, v, 4.0))  # fixed-order sums, no atomics
+    assert kernels.launch_counts()["knm_matvec"] == 2
+    ref = fo.knm_matvec_reference(x, z, v, 4.0)
+    _close(first, ref, 1e-4 * float(ref.abs().max()))
+
+
 def test_launch_counts_and_bit_repeatable_reductions(dev):
     x, z, v, y = _inputs(dev, 9000, 200, 18, 2, seed=2)
     kernels.reset_launch_counts()

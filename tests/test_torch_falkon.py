@@ -179,13 +179,18 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
     assert [lvl["lam"] for lvl in fb["levels"]][-1] == 1e-2
     bless_t = fb.pop("tensors")
     calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=bless_t, folds=3)
-    assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + ["knm_t@cv", "quadform@ladder"]
+    extra = ["knm_t@cv", "knm_matvec@cv", "gram@slab", "quadform@ladder"]
+    assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + extra
     masked = next(c for c in calls if c[0] == "falkon_matvec_masked")
     assert masked[1:5] == (1536, int(bless_t["center_set"].count), 18, 3)
     rhs = next(c for c in calls if c[0] == "knm_t@cv")  # K3 at the sweep's shape
     assert rhs[1:5] == masked[1:5] and rhs[5]().shape == (masked[2], 3)
+    panel = next(c for c in calls if c[0] == "knm_matvec@cv")  # the sweep's panel predict
+    assert panel[1:5] == masked[1:5] and panel[5]().shape == (1536, 3)
+    slab = next(c for c in calls if c[0] == "gram@slab")  # one variance slab: all 512 rows here
+    assert slab[1:4] == (512, 120, 18) and slab[5]().shape == (512, 120)
     errs = chip_smoke.main_path_parity(calls)
-    assert set(errs) == set(chip_smoke.KERNELS) | {"knm_t@cv", "quadform@ladder"}
+    assert set(errs) == set(chip_smoke.KERNELS) | set(extra)
     for name, n, m, d, k, kern, _, library in calls:
         out = library()
         assert bool(torch.all(torch.isfinite(out)))

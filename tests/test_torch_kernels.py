@@ -264,7 +264,8 @@ def test_every_launcher_is_defined_against_its_declaration():
     # name (a drifted signature then fails to compile) and include no
     # PyTorch header; only binding.cpp does.
     names = _launchers()
-    assert names == ["launch_gram", "launch_falkon_matvec_fused", "launch_row_norms",
+    assert names == ["launch_gram", "launch_gram_wide", "launch_falkon_matvec_fused",
+                     "launch_row_norms",
                      "launch_reduce_partials_blocked", "launch_knm_matvec",
                      "launch_knm_matvec_masked", "launch_knm_t_reg", "launch_knm_t_partial",
                      "launch_reduce_partials", "launch_rls_score_partial",
@@ -292,15 +293,32 @@ def test_binding_checks_every_launch():
         after = text[stmt_end + 1:].lstrip()
         assert after.startswith("C10_CUDA_KERNEL_LAUNCH_CHECK();"), text[end - 40:stmt_end + 60]
     for name in ("gram", "knm_matvec", "knm_t", "falkon_matvec_fused", "falkon_matvec",
-                 "falkon_matvec_masked", "rls_score", "quadform", "flash_attention", "ssd"):
+                 "rls_score", "quadform", "flash_attention", "ssd"):
         assert f'm.def("{name}", &{name}' in text
-    # K7's two-stage binding checks its mask and runs three launches, each checked
-    body = text[text.index("void falkon_matvec_masked("):text.index("// K5:")]
-    assert 'check(mask, "mask")' in body and "TORCH_CHECK(mask.dim() == 2" in body
-    assert body.count("repro::launch_") == 1 and "knm_t_launches(" in body
+    # K2's and K7's two-stage binding checks the mask, then runs K4's launches
+    # (stage 1, the mask multiplying it) and K3's (stage 2)
+    body = text[text.index("void falkon_matvec("):text.index("// K5:")]
+    assert 'check(*mask, "mask")' in body and "TORCH_CHECK(mask->dim() == 2" in body
+    assert "repro::launch_" not in body
+    assert body.index("knm_matvec_launches(") < body.index("knm_t_launches(")
+    # K4: the tiled route's kernel (masked or not), or the register route's
+    # norms of z, K3's register kernel on (z, x) and, over several center
+    # chunks, the blocked sum that applies the mask
+    body = text[text.index("void knm_matvec_launches("):text.index("}  // namespace")]
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_knm_matvec_masked", "repro::launch_knm_matvec", "repro::launch_row_norms",
+        "repro::launch_knm_t_reg", "repro::launch_reduce_partials_blocked"]
+    assert "repro::launch_knm_t_reg(z.data_ptr<float>(), x.data_ptr<float>()" in body
+    assert "split ? nullptr : mask" in body and "TORCH_CHECK(d >= 1 && d <= 32" in body
+    # K1: the tiled route's kernel, or the rows' norms of x and z and the wide kernel
+    body = text[text.index("void gram("):text.index("// K4: out")]
+    assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
+        "repro::launch_gram", "repro::launch_row_norms", "repro::launch_row_norms",
+        "repro::launch_gram_wide"]
+    assert "TORCH_CHECK(!vec || m % 4 == 0" in body and "gram_wide_smem_floats(" in body
     # the cluster route (K2, or K7 with a mask) checks the mask and the plan,
     # then runs the fused kernel and the fixed-order sum of its row chunks
-    body = text[text.index("void falkon_matvec_fused("):text.index("// K2 on the two-stage route")]
+    body = text[text.index("void falkon_matvec_fused("):text.index("// K2 (mask None) or K7 on the two-stage")]
     assert 'check(*mask, "mask")' in body and "TORCH_CHECK(mask->dim() == 2" in body
     assert "falkon_fused_smem_floats(" in body and "232448" in body
     assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
@@ -312,7 +330,7 @@ def test_binding_checks_every_launch():
         "repro::launch_rls_score_partial", "repro::launch_rls_score_finish"]
     # K3 (and the two-stage route's second stage): the tiled route's kernel and
     # ordered sum, or the register route's row norms, kernel and blocked sum
-    body = text[text.index("void knm_t_launches("):text.index("}  // namespace")]
+    body = text[text.index("void knm_t_launches("):text.index("void knm_matvec_launches(")]
     assert [m.group(0) for m in re.finditer(r"repro::launch_\w+", body)] == [
         "repro::launch_knm_t_partial", "repro::launch_reduce_partials", "repro::launch_row_norms",
         "repro::launch_knm_t_reg", "repro::launch_reduce_partials_blocked"]
@@ -329,8 +347,10 @@ def test_masked_stage_one_is_the_templated_k4_kernel():
     # K7's mask multiply lives in the hand-written kernels. On the cluster
     # route one fused kernel templated on MASKED serves K2 (false) and K7
     # (true), the mask multiplying T between the two contractions; on the
-    # two-stage route stage 1 is K4's kernel templated on MASKED, instantiated
-    # unmasked for K2/K4.
+    # two-stage route stage 1 is K4's: at d above 32 its tiled kernel
+    # templated on MASKED (instantiated unmasked for K2/K4), at d <= 32 its
+    # register route, which takes the mask as a pointer
+    # (test_knm_matvec_register_route_keeps_g_in_registers).
     text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
     fused = _kernel_body(text, "falkon_matvec_fused_kernel")
     assert "template <bool MASKED, int NC>\n__global__" in text
@@ -480,6 +500,128 @@ def test_knm_t_register_kernel_keeps_g_in_registers():
     assert "acc[j][c] += t8;" in kernel and "atomicAdd" not in text
     launcher = text[text.index("void repro::launch_knm_t_reg("):]
     assert "launch_knm_t_reg_bf<true>(" in launcher and "launch_knm_t_reg_bf<false>(" in launcher
+
+
+@pytest.mark.parametrize("n,m,d,k", [(10 ** 6, 10 ** 4, 18, 1), (10 ** 6, 2978, 18, 5),
+                                     (10 ** 6, 16_384, 18, 1), (10 ** 6, 10 ** 5, 18, 5),
+                                     (70_001, 1_000, 18, 40), (0, 5, 3, 1), (1, 1, 1, 1),
+                                     (3_001, 1_023, 32, 9), (5 * 10 ** 6, 3, 7, 2)])
+def test_knm_matvec_plan_covers_every_row_and_center_once(n, m, d, k):
+    plan = fo.knm_matvec_plan(n, m, d, k)
+    assert plan == fo.knm_matvec_plan(n, m, d, k)  # a pure function of the shape
+    assert plan.route == "register" and plan.kc in fo.FUSED_KC and plan.kc >= min(k, 8)
+    # center chunks of whole 64-center tiles cover every center once, none too long
+    assert plan.cols == fo.KT_ROWS and plan.chunk_cols % fo.KT_ROWS == 0
+    assert plan.chunk_cols <= fo.KT_MAX_CHUNK_ROWS and 1 <= plan.n_chunks <= 65535
+    assert (plan.n_chunks - 1) * plan.chunk_cols < max(m, 1) <= plan.n_chunks * plan.chunk_cols
+    # 512-row slices and column chunks cover every row and column once
+    slices, col_chunks = -(-max(n, 1) // plan.slice_rows), -(-k // plan.kc)
+    assert plan.slice_rows == fo.KT_SLICE
+    assert (slices - 1) * plan.slice_rows < max(n, 1) <= slices * plan.slice_rows
+    assert (col_chunks - 1) * plan.kc < k <= col_chunks * plan.kc
+    # about TARGET_BLOCKS blocks where the centers allow it: no fewer than
+    # half, and no more center chunks than needed to come nearest to it
+    tiles = -(-max(m, 1) // fo.KT_ROWS)
+    blocks = slices * col_chunks * plan.n_chunks
+    assert blocks >= min(fo.TARGET_BLOCKS // 2, tiles * slices * col_chunks)
+    if plan.n_chunks > -(-tiles // (fo.KT_MAX_CHUNK_ROWS // fo.KT_ROWS)):
+        assert slices * col_chunks * (plan.n_chunks - 1) < fo.TARGET_BLOCKS
+
+
+def test_knm_matvec_plan_main_path_shapes():
+    # predict of the uniform fit's 10^5 test rows (split: 196 row slices
+    # alone), the CV sweep's panel predict on 10^6 rows (the row slices
+    # alone), the classifier's 2 columns, and the two-stage route's first
+    # stage at 16 384 centers (one chunk)
+    assert fo.knm_matvec_plan(10 ** 5, 10 ** 4, 18, 1) == fo.KnmMatvecPlan(
+        "register", 512, 64, 1, 10, 1024)
+    assert fo.knm_matvec_plan(10 ** 6, 2977, 18, 5) == fo.KnmMatvecPlan(
+        "register", 512, 64, 5, 1, 3008)
+    assert fo.knm_matvec_plan(10 ** 5, 2977, 18, 2)[:4] == ("register", 512, 64, 2)
+    assert fo.knm_matvec_plan(10 ** 6, 16_384, 18, 1)[3:] == (1, 1, 16_384)
+    # the GPU test of the all-ones mask on the two-stage route splits its centers
+    assert fo.knm_matvec_plan(9_001, 12_289, 18, 1).n_chunks > 1
+
+
+@pytest.mark.parametrize("n,m,d,k", [(5_000, 100, 33, 1), (10 ** 6, 10 ** 4, 40, 5), (64, 1, 200, 1)])
+def test_knm_matvec_plan_takes_the_tiled_route_above_d_32(n, m, d, k):
+    plan = fo.knm_matvec_plan(n, m, d, k)
+    assert plan.route == "tiled" and plan.kc == 0 and plan.n_chunks == 1
+    assert plan.chunk_cols >= m
+
+
+def test_knm_matvec_register_route_keeps_g_in_registers():
+    # K4's register route is K3's register kernel on the transposed problem
+    # (x's rows its thread-owned side, the centers streamed): the binding
+    # hands it (z, x), z's norms and the mask, and that kernel keeps no Gram
+    # buffer in shared memory. The mask multiplies the whole sum once: in the
+    # kernel's write or in the blocked reduce, never both.
+    text = (build.CSRC.parent / "falkon_matvec" / "falkon_matvec.cu").read_text()
+    kernel = _kernel_body(text, "knm_t_reg_kernel")
+    assert "gs[" not in kernel and "TileSmem" not in kernel and "gram_tile(" not in kernel
+    assert "__shared__" not in kernel.replace("extern __shared__ __align__(16) float dyn[];", "")
+    assert "mask != nullptr ? acc[j][c] * mask[o + c] : acc[j][c]" in kernel
+    reduce = text[text.index("void reduce_partials_blocked_kernel("):]
+    assert "mask != nullptr ? total * mask[i] : total" in reduce[:reduce.index("\n}\n")]
+    binding = (build.CSRC / "binding.cpp").read_text()
+    body = binding[binding.index("void knm_matvec_launches("):binding.index("}  // namespace")]
+    assert "repro::launch_row_norms(z.data_ptr<float>(), znorm.data_ptr<float>()" in body
+    assert "znorm.data_ptr<float>(), split ? nullptr : mask, target, m, n, d, k" in body
+    assert "repro::launch_reduce_partials_blocked(partial.data_ptr<float>(), mask," in body
+
+
+def test_gram_wide_route_writes_16_byte_stores():
+    # The plan's constants are the kernel's; each thread of the wide kernel
+    # owns GW_CW = 4 consecutive columns of 16 rows and writes each row as one
+    # float4 streaming store (4-byte streaming stores where m % 4 != 0); the
+    # stripe and the tiles are staged by cp.async, and gram_tile is not used.
+    text = (build.CSRC.parent / "gram" / "gram.cu").read_text()
+    assert _constant(text, "GW_RW") * _constant(text, "GW_THREADS") // 32 == go.ROWS
+    assert 32 * _constant(text, "GW_CW") == go.COLS and _constant(text, "GW_CW") == 4
+    assert _constant(text, "GW_DMAX") == go.DMAX
+    kernel = _kernel_body(text, "gram_wide_kernel")
+    assert "__stcs(reinterpret_cast<float4*>(dst), make_float4(" in kernel
+    assert "__stcs(dst + j, g[i][j])" in kernel and "if constexpr (VEC)" in kernel
+    assert "cp_async4(" in kernel and "gram_tile(" not in kernel and "TileSmem" not in kernel
+    assert kernel.count("tile_epilogue(fam, g, xni, znj, s);") == 1
+    assert "fmaf(a[i], bv[j], g[i][j])" in kernel and "atomicAdd" not in text
+    launcher = text[text.index("void repro::launch_gram_wide("):]
+    for vec in ("true", "false"):
+        for bf16 in ("true", "false"):
+            assert f"launch_wide<{vec}, {bf16}>" in launcher
+    layout = text[text.index("inline GramLayout gram_layout("):]
+    assert "l.total = l.zn + 2 * GW_COLS;" in layout[:layout.index("return l;")]
+
+
+@pytest.mark.parametrize("n,m,d", [(10 ** 4, 10 ** 4, 18), (26_843, 10 ** 4, 18), (1, 1, 1),
+                                   (0, 4, 3), (5_003, 301, 18), (32_768, 2_560, 18),
+                                   (10 ** 6, 9, 64), (7, 10 ** 7, 2)])
+def test_gram_plan_covers_every_row_and_column_once(n, m, d):
+    plan = go.gram_plan(n, m, d)
+    assert plan == go.gram_plan(n, m, d)  # a pure function of the shape
+    assert plan.route == ("wide" if m % 4 == 0 else "scalar")
+    assert (plan.rows, plan.cols) == (go.ROWS, go.COLS)
+    stripes, tiles = -(-max(n, 1) // plan.rows), -(-max(m, 1) // plan.cols)
+    runs = -(-tiles // plan.run)
+    assert 1 <= plan.run <= tiles and runs <= 65535
+    assert (runs - 1) * plan.run < tiles <= runs * plan.run
+    # about TARGET_BLOCKS blocks where the shape allows it
+    blocks = stripes * runs
+    assert blocks >= min(go.TARGET_BLOCKS // 2, stripes * tiles)
+    if plan.run > 1 and runs < 65535:
+        assert stripes * -(-tiles // (plan.run - 1)) > go.TARGET_BLOCKS // 2
+
+
+def test_gram_plan_main_path_shapes():
+    # K_MM at M = 10^4, the predictive variance's 1 GiB slab, a ladder level
+    assert go.gram_plan(10 ** 4, 10 ** 4, 18) == go.GramPlan("wide", 128, 128, 2)
+    assert go.gram_plan(26_843, 10 ** 4, 18) == go.GramPlan("wide", 128, 128, 5)
+    assert go.gram_plan(10 ** 4, 2977, 18).route == "scalar"
+
+
+@pytest.mark.parametrize("n,m,d", [(777, 130, 65), (10 ** 4, 10 ** 4, 200), (1, 1, 65)])
+def test_gram_plan_takes_the_tiled_route_above_the_d_cap(n, m, d):
+    assert go.DMAX == 64 and go.gram_plan(n, m, d).route == "tiled"
 
 
 @pytest.mark.parametrize("k", [5, 9])
