@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV and classifier
-paths and its Jamba serving path on one H100.
+"""Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
+KRR serving, streaming and online paths and its Jamba serving path on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
 
@@ -59,7 +59,10 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 at the sweep's shape (10^6 rows, the BLESS M, its 5-column
                 right-hand side), K4 at the sweep's panel predict (10^6 rows,
                 the BLESS M, 5 columns) and K1 at the predictive variance's
-                slab (the rows of QUADFORM_SLAB_BYTES against M = 10^4).
+                slab (the rows of QUADFORM_SLAB_BYTES against M = 10^4), and
+                phase 12's shapes: K1 on one streamed tile (65 536 training
+                rows against the BLESS centers) and K4 on a serving wave of
+                4 096 and of 2 048 test rows against M = 10^4.
                 Logged beside them, not gated:
                 K5 against K1 + K6 at M = 1 024 (the MAX_FUSED_M crossover)
                 on K5's rows, and K2 on the two-stage route at M = 16 384
@@ -84,6 +87,37 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 of 1 - phase 5's FALKON-BLESS test error (same centers, lam and
                 iterations), and the two margin columns negatives of each
                 other to 1e-5 of max|margin| (CG is homogeneous in b).
+
+ 12. krr-online run right after phase 8 on phase 4's data and uniform model
+                and phase 5's BLESS centers, weights and fit (the LM phases
+                free that memory); counts reset before the phase's work and
+                read after. (a) KrrServer: 4 096 requests of 1-64 test rows
+                (sizes from --seed), max_wave 4 096, min_bucket 64: every
+                request's rows equal model.predict's to 1e-4 * max|pred| (K4);
+                requests/s, rows/s, waves, padded rows, buckets. (b)
+                AsyncKrrServer(ServeConfig(max_inflight=2)) on the same
+                traffic: equal to (a) to 1e-4 * max|pred|; under one
+                gram.nan_tile firing every request DONE with one wave failure
+                and a split; the backend.error isolation script of
+                tests/test_chaos.py replayed here gives the statuses and stats
+                of its CPU run (BACKEND_ERROR_EXPECTED). (c) falkon_fit on
+                ChunkStore(x, y) in pinned host memory, chunk 65 536, through
+                "stream:cuda" (K1 tiles): predictions within 1e-3 * max|pred|
+                of phase 5's fit on the device-resident data, allocator peak
+                above the resident base < 0.25 * 4 n M. (d)
+                resumable_streamed_fit on the same store, a barrier every 4
+                chunks: uninterrupted, then killed by ckpt.torn_write at
+                pre_rename on its third barrier and resumed; the resumed alpha
+                equal bit for bit, test error < 0.2. (e) OnlineFalkon on the
+                first 9 * 10^5 rows, 10 appends of 10^4 rows with a warm
+                refit after each: within 1e-2 relative of (d); a NaN row
+                armed with online.corrupt_row is rejected with the store, H
+                and b untouched. Referee of (c)-(e): an fp64 TorchBackend fit
+                on fp64 copies of the same rows, centers, weights, lam and
+                iterations; the streamed predictions no farther from it than
+                phase 5's K2 fit is, plus 1e-3 of max|fp64 pred|, the durable
+                and online ones (fp64 accumulators) within 1e-4 of it. Runs
+                before phases 9-11 in main().
 
   9. lm parity  K8 flash_attention and K9 ssd against their plain versions on
                 the card, fp32 and bf16: K8 causal and bidirectional, GQA
@@ -804,7 +838,7 @@ def bless_end_to_end(device, t: dict, *, sigma: float = 4.0, lam_bless: float = 
     res["levels"] = levels
     res["tensors"] = {"k5": largest([c for c in rec.calls if c["dbuf"] <= ro.MAX_FUSED_M]),
                       "k6_ladder": largest(above), "center_set": est.center_set_,
-                      "z": est.centers_}
+                      "z": est.centers_, "a_diag": est.a_diag_, "alpha": est.model_.alpha}
     return res
 
 
@@ -914,8 +948,11 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
     BLESS centers and the sweep's (n, folds) right-hand sides, "knm_matvec@cv"
     K4 on the same rows and centers with an (M, folds) panel (the sweep's
     panel predict), "gram@slab" K1 on the test rows of one predictive-variance
-    slab (``QUADFORM_SLAB_BYTES``) against the M = 10^4 centers, and
-    "quadform@ladder" K6 at the largest ladder level above 1 024 centers
+    slab (``QUADFORM_SLAB_BYTES``) against the M = 10^4 centers, "gram@stream"
+    K1 on one of phase 12's streamed chunks (``KRR_CHUNK`` training rows
+    against the BLESS centers), "knm_matvec@wave" and "knm_matvec@wave_half"
+    K4 on phase 12's serving waves (``KRR_MAX_WAVE`` and half as many test
+    rows against the M = 10^4 centers), and "quadform@ladder" K6 at the largest ladder level above 1 024 centers
     (timed and logged, not part of the kernels record)."""
     from repro_torch.core import CudaBackend, make_kernel
     from repro_torch.core.backend import QUADFORM_SLAB_BYTES
@@ -943,6 +980,9 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
                      .manual_seed(seed), device=x.device)
     y_cv = y[:, None] * mask  # the sweep's right-hand sides: one column per fold
     slab = xte[:max(1, QUADFORM_SLAB_BYTES // (4 * m))]  # CudaBackend's variance slab
+    tile = x[:KRR_CHUNK]  # one streamed / accumulated chunk of phase 12
+    waves = [("knm_matvec@wave", xte[:KRR_MAX_WAVE]),
+             ("knm_matvec@wave_half", xte[:KRR_MAX_WAVE // 2])]  # phase 12's buckets
     extra = [("knm_t@cv", n, zb.shape[0], d, folds, lambda: fo.knm_t(x, zb, y_cv, sigma),
               lambda: fo.knm_t_reference(x, zb, y_cv, sigma),
               lambda: _library_call("knm_t", x, zb, y_cv, s)),
@@ -951,7 +991,13 @@ def main_path_calls(t: dict, sigma: float, bless_t: dict, *, folds: int = 5, see
               lambda: _library_call("knm_matvec", x, zb, vb, s)),
              ("gram@slab", slab.shape[0], m, d, m, lambda: go.gram(slab, z, sigma),
               lambda: go.gram_reference(slab, z, sigma),
-              lambda: _library_call("gram", slab, z, None, s))]
+              lambda: _library_call("gram", slab, z, None, s)),
+             ("gram@stream", tile.shape[0], zb.shape[0], d, zb.shape[0],
+              lambda: go.gram(tile, zb, sigma), lambda: go.gram_reference(tile, zb, sigma),
+              lambda: _library_call("gram", tile, zb, None, s))]
+    extra += [(name, xw.shape[0], m, d, 1, lambda xw=xw: fo.knm_matvec(xw, z, v, sigma),
+               lambda xw=xw: fo.knm_matvec_reference(xw, z, v, sigma),
+               lambda xw=xw: _library_call("knm_matvec", xw, z, v, s)) for name, xw in waves]
     if bless_t["k6_ladder"] is not None:
         xl, zl, ml, rl, _ = bless_t["k6_ladder"]
         mk6, wk6 = inverse(kern, zl, ml, rl)
@@ -1284,6 +1330,355 @@ def classify(device, t: dict, center_set, bless_test_error: float, *, lam: float
             bad.append(f"kernels not launched on the classifier path: {missing}")
     if bad:
         raise PhaseError("classifier failed: " + "; ".join(bad))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 12. KRR serving, out-of-core streaming, durable and online FALKON
+# ---------------------------------------------------------------------------
+
+#: the kernels phase 12 must launch: K4 in every serving wave, K1 in every
+#: streamed tile, accumulator chunk and K_MM.
+KRR_ONLINE_PATH = ("gram", "knm_matvec")
+#: phase 12's streamed chunk (rows) and largest serving wave (rows); phase 6
+#: times K1 and K4 at these shapes.
+KRR_CHUNK = 65_536
+KRR_MAX_WAVE = 4096
+#: the durable and online fits' distance from the fp64 referee, over max
+#: |fp64 pred|: fp64 accumulators of K1's fp32 G read 9.1e-6 and 8.2e-6 at
+#: SUSY scale on the H100, against 4.1e-3 for the fp32 K2 fit.
+FP64_ACC_TOL = 1e-4
+#: (statuses, stats) of the backend.error isolation script below, the
+#: reference's ``test_dispatch_error_wave_isolated`` (tests/test_chaos.py):
+#: two 8-row requests in one 16-row wave; the wave's dispatch raises once,
+#: each half is retried alone and served.
+BACKEND_ERROR_EXPECTED = (
+    ["done", "done"],
+    {"requests": 2, "rows": 16, "dispatches": 3, "padded_rows": 16, "buckets": [16],
+     "wave_failures": 1, "splits": 1, "shed": 0, "expired": 0, "failed": 0,
+     "degraded_waves": 0, "swaps": 0, "swaps_rejected": 0, "model_version": 0,
+     "last_swap": None})
+
+
+def backend_error_script(server_cls, config_cls, faults, model, requests):
+    """The isolation script: ``requests`` (host arrays) submitted to a fresh
+    ``server_cls(model, config=config_cls(min_bucket=16))``, served with
+    ``backend.error`` armed for one firing. Returns (statuses, stats with
+    the bucket set as a sorted list). The classes and the ``faults`` module
+    are arguments, so the same script runs on either package."""
+    srv = server_cls(model, config=config_cls(min_bucket=16))
+    rids = [srv.submit(q) for q in requests]
+    with faults.fault("backend.error", times=1):
+        srv.run_until_idle()
+    stats = dict(srv.stats)
+    stats["buckets"] = sorted(stats["buckets"])
+    return [srv.status(r).value for r in rids], stats
+
+
+def serving_traffic(xte_host: torch.Tensor, requests: int, max_rows: int,
+                    seed: int) -> list[torch.Tensor]:
+    """``requests`` host requests of 1..``max_rows`` rows (sizes from
+    ``seed``), consecutive slices of the test set, wrapping around."""
+    g = torch.Generator().manual_seed(seed)
+    sizes = torch.randint(1, max_rows + 1, (requests,), generator=g).tolist()
+    out, off = [], 0
+    for r in sizes:
+        if off + r > xte_host.shape[0]:
+            off = 0
+        out.append(xte_host[off:off + r])
+        off += r
+    return out
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b| (inf when a is not finite)."""
+    if not bool(torch.all(torch.isfinite(a))):
+        return math.inf
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def fp64_referee(kern, x, y, z, a_diag, lam: float, iters: int, xte) -> torch.Tensor:
+    """Predictions on ``xte`` of a TorchBackend fit on fp64 copies of the same
+    rows, centers, weights, lam and iterations: phase 12's referee. The fp32
+    fits at this lam lie ~4e-3 of max|pred| from it, while fp64 sums of the
+    same fp32 Gram values lie ~1e-5 from it, so the fp32 fits are held to it
+    relative to the K2 fit, as phase 4's refits are."""
+    from repro_torch.core import TorchBackend, falkon_fit
+
+    be = TorchBackend()
+    model = falkon_fit(kern, x.double(), y.double(), z.double(), lam, a_diag=a_diag.double(),
+                       iters=iters, backend=be)
+    return model.predict(xte.double(), backend=be)
+
+
+def krr_online(device, t: dict, bless_t: dict, *, sigma: float = 4.0, lam: float = 1e-6,
+               iters: int = 20, requests: int = 4096, max_rows: int = 64,
+               max_wave: int = KRR_MAX_WAVE, min_bucket: int = 64, chunk: int = KRR_CHUNK,
+               ckpt_every: int = 4, online_rows: int = 900_000, appends: int = 10,
+               append_rows: int = 10_000, seed: int = 0, max_error: float = 0.2) -> dict:
+    """Phase 12 on phase 4's data and model and phase 5's BLESS centers,
+    weights and fit, with the launch counts reset just before the phase's
+    work and read just after (the direct predictions the gates compare with
+    are made before the reset):
+
+      (a) ``KrrServer`` on phase 4's uniform model: ``requests`` requests of
+          1..``max_rows`` test rows, one flush; each request's rows against
+          ``model.predict`` of the same rows, 1e-4 * max|pred|.
+      (b) ``AsyncKrrServer(ServeConfig(max_inflight=2))`` on the same
+          traffic: equal to (a) to 1e-4 * max|pred|; then under one
+          ``gram.nan_tile`` firing every request DONE with one wave failure
+          and a split; then the backend.error isolation script, whose
+          statuses and stats must be ``BACKEND_ERROR_EXPECTED``.
+      (c) ``falkon_fit`` on ``ChunkStore(x, y, chunk=chunk)`` (pinned host
+          memory on the card) through ``"stream:cuda"``: predictions within
+          1e-3 * max|pred| of phase 5's fit on the device-resident data
+          through ``CudaBackend`` (same centers, weights, lam and
+          iterations), and the allocator's peak above what was resident
+          before the fit < 0.25 * 4 n M.
+      (d) ``resumable_streamed_fit`` on the same store and centers,
+          ``ckpt_every`` chunks per barrier: uninterrupted, then killed by
+          ``ckpt.torn_write`` at ``pre_rename`` on its third barrier and
+          resumed; the resumed alpha equals the uninterrupted one bit for
+          bit, and the test error is below ``max_error``.
+      (e) ``OnlineFalkon`` on the first ``online_rows`` rows, ``appends``
+          appends of ``append_rows`` rows, a warm refit after each: final
+          predictions within 1e-2 relative of (d)'s; a NaN row armed with
+          ``online.corrupt_row`` is rejected with the store, H and b
+          untouched (``torch.equal``) and the caller's batch unwritten.
+
+    The referee of (c)-(e) is ``fp64_referee`` (each distance a max abs
+    difference over max |fp64 prediction|): the streamed fit no farther from
+    it than phase 5's K2 fit is, plus E2E_TOL; the durable and online fits,
+    whose accumulators and solve are fp64, within FP64_ACC_TOL.
+    Each step's launches are recorded beside its times.
+    """
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.api import (AsyncKrrServer, ChunkStore, KrrServer, OnlineFalkon,
+                                 ServeConfig, resumable_streamed_fit)
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import FalkonModel, falkon_fit, health, make_kernel
+    from repro_torch.core.backend import backend_for_device
+    from repro_torch.serving import RequestStatus
+    from repro_torch.stream import device_memory_stats
+    from repro_torch.testing import faults
+
+    on_card = torch.device(device).type == "cuda"
+    xtr, ytr, xte, yte = t["x"], t["y"], t["xte"], t["yte"]
+    n = xtr.shape[0]
+    kern = make_kernel("gaussian", sigma=sigma)
+    be = backend_for_device(device)
+    model = FalkonModel(centers=t["z"], alpha=t["alpha"], kernel=kern, backend=be)
+    zb, ab = bless_t["z"], bless_t["a_diag"]
+    m = zb.shape[0]
+    bless_model = FalkonModel(centers=zb, alpha=bless_t["alpha"], kernel=kern, backend=be)
+    traffic = serving_traffic(xte.cpu(), requests, max_rows, seed)
+    direct = model.predict(torch.cat(traffic).to(xte.device))
+    direct_parts = torch.split(direct, [q.shape[0] for q in traffic])
+    scale = float(direct.abs().max())
+    ref_pred = bless_model.predict(xte)
+    ref64 = fp64_referee(kern, xtr, ytr, zb, ab, lam, iters, xte)
+    scale64 = float(ref64.abs().max())
+
+    def to_referee(pred: torch.Tensor) -> float:
+        """max |pred - the fp64 referee's| / max |the referee's| (inf if not finite)."""
+        if not bool(torch.all(torch.isfinite(pred))):
+            return math.inf
+        return float((pred.double() - ref64).abs().max()) / scale64
+
+    res = {"n_train": n, "m_uniform": t["z"].shape[0], "m": m, "requests": requests,
+           "rows": int(direct.shape[0]), "chunk": chunk}
+    bad = []
+    seen = dict.fromkeys(KRR_ONLINE_PATH, 0)
+
+    def step_launches() -> dict:
+        """The path's launches since the previous call (counts since the reset)."""
+        now = kernels.launch_counts()
+        out = {name: now[name] - seen[name] for name in KRR_ONLINE_PATH}
+        seen.update({name: now[name] for name in KRR_ONLINE_PATH})
+        return out
+
+    sync(device)
+    kernels.reset_launch_counts()
+    # (a) KrrServer
+    srv = KrrServer(model, max_wave=max_wave, min_bucket=min_bucket)
+    t0 = time.perf_counter()
+    rids = [srv.submit(q) for q in traffic]
+    out = srv.flush()
+    sync(device)
+    serve_s = time.perf_counter() - t0
+    err_a = max(float((out[r] - d).abs().max()) for r, d in zip(rids, direct_parts)) / scale
+    res["serve"] = {"seconds": serve_s, "requests_per_s": requests / serve_s,
+                    "rows_per_s": int(direct.shape[0]) / serve_s,
+                    "dispatches": srv.stats["dispatches"], "padded_rows": srv.stats["padded_rows"],
+                    "buckets": sorted(srv.stats["buckets"]), "err_over_max": err_a,
+                    "launches": step_launches()}
+    if not err_a <= KNM_TOL:
+        bad.append(f"(a) KrrServer rows {err_a:.3e} of max|pred| from model.predict")
+
+    # (b) AsyncKrrServer: the same traffic, then a NaN tile, then backend.error
+    asrv = AsyncKrrServer(model, config=ServeConfig(max_wave=max_wave, min_bucket=min_bucket,
+                                                    max_inflight=2))
+    t0 = time.perf_counter()
+    arids = [asrv.submit(q) for q in traffic]
+    asrv.run_until_idle()
+    sync(device)
+    async_s = time.perf_counter() - t0
+    done = all(asrv.status(r) == RequestStatus.DONE for r in arids)
+    err_b = (max(float((asrv.result(a) - out[r]).abs().max()) for a, r in zip(arids, rids))
+             / scale if done else math.inf)
+    nsrv = AsyncKrrServer(model, config=ServeConfig(max_wave=max_wave, min_bucket=min_bucket,
+                                                    max_inflight=2))
+    nrids = [nsrv.submit(q) for q in traffic]
+    with faults.fault("gram.nan_tile", times=1):
+        nsrv.run_until_idle()
+    nan_done = all(nsrv.status(r) == RequestStatus.DONE for r in nrids)
+    g = torch.Generator().manual_seed(seed)
+    script = backend_error_script(AsyncKrrServer, ServeConfig, faults, model,
+                                  [torch.randn((8, xte.shape[1]), generator=g) for _ in range(2)])
+    res["async"] = {"seconds": async_s, "requests_per_s": requests / async_s,
+                    "dispatches": asrv.stats["dispatches"], "p99_wave_s": asrv.p99_latency(),
+                    "err_over_max": err_b, "nan_tile": {
+                        "all_done": nan_done, "wave_failures": nsrv.stats["wave_failures"],
+                        "splits": nsrv.stats["splits"]},
+                    "backend_error_script": {"statuses": script[0], "stats": script[1]},
+                    "launches": step_launches()}
+    if not err_b <= KNM_TOL:
+        bad.append(f"(b) AsyncKrrServer results {err_b:.3e} of max|pred| from (a)'s")
+    if not (nan_done and nsrv.stats["wave_failures"] == 1 and nsrv.stats["splits"] >= 1):
+        bad.append(f"(b) nan_tile isolation: {res['async']['nan_tile']}")
+    if list(script) != list(BACKEND_ERROR_EXPECTED):
+        bad.append(f"(b) backend.error script gave {script}, not {BACKEND_ERROR_EXPECTED}")
+
+    # (c) the streamed fit from pinned host memory
+    store = ChunkStore(xtr, ytr, chunk=chunk, device=device)
+    sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = device_memory_stats(device)["allocated_bytes.all.current"]
+    t0 = time.perf_counter()
+    smodel = falkon_fit(kern, store, ytr, zb, lam, a_diag=ab, iters=iters, backend="stream:cuda")
+    sync(device)
+    stream_s = time.perf_counter() - t0
+    peak = device_memory_stats(device)["allocated_bytes.all.peak"] - base if on_card else None
+    launches_c = step_launches()
+    spred = smodel.predict(xte)
+    err_c = _rel(spred, ref_pred)
+    res["referee"] = {"rows": n, "max_abs_pred_fp64": scale64, "k2_fit": to_referee(ref_pred),
+                      "stream": to_referee(spred)}
+    res["stream"] = {"fit_s": stream_s, "n_chunks": store.n_chunks,
+                     "test_error": float(torch.mean((torch.sign(spred) != yte).float())),
+                     "err_over_max_vs_cuda_fit": err_c, "peak_bytes_above_base": peak,
+                     "knm_bytes": 4 * n * m,
+                     "cg_residual_reduction": float(smodel.diagnostics.reduction.max()),
+                     "launches": launches_c}
+    if not err_c <= E2E_TOL:
+        bad.append(f"(c) streamed fit {err_c:.3e} of max|pred| from the CudaBackend fit")
+    if peak is not None and not peak < 0.25 * 4 * n * m:
+        bad.append(f"(c) allocator peak {peak} B above base is not < 0.25 * 4 n M")
+
+    # (d) the durable fit: uninterrupted, then killed at the third barrier and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(centers=zb, lam=lam, a_diag=ab, iters=iters, backend="stream:cuda",
+                  ckpt_every=ckpt_every, key=torch.Generator().manual_seed(seed))
+        t0 = time.perf_counter()
+        dmodel = resumable_streamed_fit(kern, store, ckpt_dir=f"{tmp}/whole", **kw)
+        sync(device)
+        durable_s = time.perf_counter() - t0
+        killed = False
+        t0 = time.perf_counter()
+        with faults.fault("ckpt.torn_write", stage="pre_rename", skip=2, times=1):
+            try:
+                resumable_streamed_fit(kern, store, ckpt_dir=f"{tmp}/killed", **kw)
+            except faults.FaultInjected:
+                killed = True
+        sync(device)
+        killed_s = time.perf_counter() - t0
+        resumed_from = latest_step(f"{tmp}/killed")
+        t0 = time.perf_counter()
+        rmodel = resumable_streamed_fit(kern, store, ckpt_dir=f"{tmp}/killed", **kw)
+        sync(device)
+        resume_s = time.perf_counter() - t0
+    launches_d = step_launches()
+    dpred = dmodel.predict(xte)
+    bitwise = torch.equal(rmodel.alpha, dmodel.alpha)
+    res["durable"] = {"fit_s": durable_s, "killed_s": killed_s, "resume_s": resume_s,
+                      "killed": killed, "resumed_from_step": resumed_from,
+                      "bit_identical": bitwise,
+                      "cg_residual_reduction": float(dmodel.diagnostics.reduction.max()),
+                      "test_error": float(torch.mean((torch.sign(dpred) != yte).float())),
+                      "err_over_max_vs_cuda_fit": _rel(dpred, ref_pred),
+                      "launches": launches_d}
+    res["referee"]["durable"] = to_referee(dpred)
+    if not (killed and resumed_from == 2 * ckpt_every):
+        bad.append(f"(d) the torn write did not kill the fit at its third barrier "
+                   f"(killed {killed}, latest step {resumed_from})")
+    if not bitwise:
+        bad.append("(d) the resumed alpha differs from the uninterrupted alpha")
+    if not res["durable"]["test_error"] < max_error:
+        bad.append(f"(d) durable test error {res['durable']['test_error']:.4f} >= {max_error}")
+
+    # (e) online: seed batch, appends with warm refits, the NaN fence
+    t0 = time.perf_counter()
+    online = OnlineFalkon(kern, zb, lam, x=ChunkStore(xtr[:online_rows], ytr[:online_rows],
+                                                      chunk=chunk, device=device),
+                          a_diag=ab, iters=iters, backend="stream:cuda")
+    sync(device)
+    seed_s = time.perf_counter() - t0
+    refit_ms, append_ms = [], []
+    for i in range(appends):
+        lo = online_rows + i * append_rows
+        t0 = time.perf_counter()
+        online.append(xtr[lo:lo + append_rows], ytr[lo:lo + append_rows])
+        sync(device)
+        append_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        omodel = online.refit()
+        sync(device)
+        refit_ms.append(1e3 * (time.perf_counter() - t0))
+    launches_e = step_launches()
+    opred = omodel.predict(xte)
+    err_e = _rel(opred, dpred)
+    res["referee"]["online"] = to_referee(opred)
+    h0, b0, x0, n0 = online._h.clone(), online._b.clone(), online.store.x.clone(), len(online.store)
+    batch = xtr[:100].clone()
+    rejected = False
+    with faults.fault("online.corrupt_row", row=3):
+        try:
+            online.append(batch, ytr[:100])
+        except health.NonFiniteError:
+            rejected = True
+    untouched = (len(online.store) == n0 and torch.equal(online.store.x, x0)
+                 and torch.equal(online._h, h0) and torch.equal(online._b, b0)
+                 and torch.equal(batch, xtr[:100]))
+    res["online"] = {"seed_rows": online_rows, "seed_s": seed_s, "appends": appends,
+                     "append_rows": append_rows, "append_ms": append_ms, "refit_ms": refit_ms,
+                     "rows": online.counters["rows"], "err_over_max_vs_durable": err_e,
+                     "cg_residual_reduction": float(omodel.diagnostics.reduction.max()),
+                     "nan_rejected": rejected, "nan_state_untouched": untouched,
+                     "launches": launches_e}
+    if not err_e <= 1e-2:
+        bad.append(f"(e) online predictions {err_e:.3e} of max|pred| from the durable fit's")
+    if not (rejected and untouched):
+        bad.append(f"(e) NaN fence: rejected {rejected}, state untouched {untouched}")
+    if not res["referee"]["stream"] <= res["referee"]["k2_fit"] + E2E_TOL:
+        bad.append(f"(c) the streamed fit is {res['referee']['stream']:.3e} from the fp64 "
+                   f"referee, farther than the K2 fit ({res['referee']['k2_fit']:.3e}) + {E2E_TOL}")
+    for step in ("durable", "online"):
+        if not res["referee"][step] <= FP64_ACC_TOL:
+            bad.append(f"the {step} fit is {res['referee'][step]:.3e} from the fp64 referee "
+                       f"> {FP64_ACC_TOL}")
+    sync(device)
+    launches = kernels.launch_counts()
+    res["launches"] = launches
+    log(f"krr_online: {json.dumps(res)}")
+    if on_card:
+        missing = [name for name in KRR_ONLINE_PATH if launches[name] == 0]
+        if missing:
+            bad.append(f"kernels not launched on the serving / streaming path: {missing}")
+    if bad:
+        raise PhaseError("krr-online failed: " + "; ".join(bad))
     return res
 
 
@@ -1706,6 +2101,7 @@ def main(argv=None) -> int:
         crossovers("cuda", times, seed=args.seed)
         cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
         clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
+        krr = krr_online("cuda", tensors, bless_t, seed=args.seed)
         del tensors, bless_t  # the LM phases need the card's memory
         _free("cuda")
         lm_worst = lm_kernel_parity("cuda", seed=args.seed)
@@ -1715,9 +2111,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
     # launches: the main paths' counts added (each reset just before its path):
-    # the four FALKON paths for K1-K7, the LM forward of phase 10 and the
-    # prefill + serving of phase 11 for K8 and K9
-    paths = (e2e, fb, cv, clf, dvf, srv)
+    # the four FALKON paths and phase 12's serving / streaming / online work
+    # for K1-K7, the LM forward of phase 10 and the prefill + serving of
+    # phase 11 for K8 and K9
+    paths = (e2e, fb, cv, clf, krr, dvf, srv)
     launches = {name: sum(p["launches"][name] for p in paths) for name in {**KERNELS,
                                                                              **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -1747,6 +2144,27 @@ def main(argv=None) -> int:
         f"classifier fit {clf['fit_s']:.3f} s, accuracy {clf['accuracy']:.5f} against "
         f"{clf['one_minus_bless_error']:.5f}; launches CV path {json.dumps(cv['launches'])}, "
         f"classifier path {json.dumps(clf['launches'])}")
+    log(f"KRR serving: {krr['serve']['requests_per_s']:.1f} requests/s, "
+        f"{krr['serve']['rows_per_s']:.1f} rows/s in {krr['serve']['dispatches']} waves "
+        f"(buckets {krr['serve']['buckets']}, {krr['serve']['padded_rows']} padded rows, K4 "
+        f"{krr['serve']['launches']['knm_matvec']} launches); async "
+        f"{krr['async']['requests_per_s']:.1f} requests/s, p99 wave {krr['async']['p99_wave_s']} s; "
+        f"streamed fit {krr['stream']['fit_s']:.3f} s (test error {krr['stream']['test_error']:.5f}, "
+        f"peak {krr['stream']['peak_bytes_above_base']} B above base), durable fit {krr['durable']['fit_s']:.3f} s (resume "
+        f"{krr['durable']['resume_s']:.3f} s, bit-identical {krr['durable']['bit_identical']}, "
+        f"test error {krr['durable']['test_error']:.5f}); online refit median "
+        f"{sorted(krr['online']['refit_ms'])[len(krr['online']['refit_ms']) // 2]:.2f} ms; launches "
+        f"{json.dumps({k: v for k, v in krr['launches'].items() if v})}")
+    # kernel time inside phase 12's wall times: launches x phase 6's CUDA-event
+    # ms at the same shapes (the full wave and the full chunk: an upper bound,
+    # as the last wave and chunk are smaller)
+    k4_ms, k1_ms = times["knm_matvec@wave"]["ms"], times["gram@stream"]["ms"]
+    log(f"krr-online kernel share: serving K4 {krr['serve']['launches']['knm_matvec']} x "
+        f"{k4_ms:.4f} ms <= {krr['serve']['launches']['knm_matvec'] * k4_ms:.3f} ms of "
+        f"{1e3 * krr['serve']['seconds']:.3f} ms wall; streamed fit K1 "
+        f"{krr['stream']['launches']['gram']} x {k1_ms:.4f} ms <= "
+        f"{krr['stream']['launches']['gram'] * k1_ms / 1e3:.4f} s of {krr['stream']['fit_s']:.4f} s; "
+        f"fp64 referee distances {json.dumps(krr['referee'])}")
     log(f"LM (Jamba, {dvf['n_layers']} layers at full width): decode vs forward "
         f"{dvf['delta_over_max']:.3e} of max|logit| in fp32; prefill "
         f"{srv['prefill_tokens_per_s']:.1f} tokens/s ({srv['batch']} x {srv['prompt']}, bf16), "

@@ -15,10 +15,24 @@ model selection over the regularization grid:
     res = KFoldSweep(kernel="gaussian", sigma=4.0, lams=(1e-5, 1e-6, 1e-7),
                      folds=5).run(x, y)    # one masked multi-RHS solve per lambda
     best = res.best_lam
+
+Serving: ``KrrServer`` micro-batches prediction traffic into pow2 waves
+(K4 on the card); ``AsyncKrrServer`` + ``ServeConfig`` add the bounded
+queue, deadlines, wave-level failure isolation, SLO degradation and
+probe-fenced ``swap_model``. Out of core: ``ChunkStore`` keeps X in pinned
+host memory and ``StreamBackend`` (``backend="stream:cuda"``) streams it
+through K1 tiles. Durable online FALKON: ``resumable_streamed_fit``
+checkpoints at chunk barriers and resumes to a bit-identical alpha
+(``ResumeMismatchError`` refuses another fit's checkpoint);
+``OnlineFalkon`` absorbs appended rows and refits warm.
 """
 from ..core.gram import Kernel, make_kernel
 from ..core.leverage import CenterSet
 from ..families import KernelFamily, kernel_family_names, register_kernel_family
+from ..online import OnlineFalkon, ResumeMismatchError, resumable_streamed_fit
+from ..serving.async_krr import AsyncKrrServer, ServeConfig
+from ..serving.krr import KrrServer
+from ..stream import ChunkStore, StreamBackend
 from .estimators import ExactKrr, FalkonClassifier, FalkonRegressor, FitConfig, NystromRegressor
 from .samplers import (
     BlessRSampler,
@@ -41,5 +55,7 @@ __all__ = [
     "FitConfig", "FalkonRegressor", "FalkonClassifier", "NystromRegressor", "ExactKrr",
     "KFoldSweep", "KFoldResult",
     "Kernel", "make_kernel", "KernelFamily", "register_kernel_family",
-    "kernel_family_names", "CenterSet",
+    "kernel_family_names", "CenterSet", "KrrServer", "AsyncKrrServer", "ServeConfig",
+    "ChunkStore", "StreamBackend",
+    "OnlineFalkon", "resumable_streamed_fit", "ResumeMismatchError",
 ]

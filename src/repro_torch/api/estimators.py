@@ -16,7 +16,9 @@ The estimators run on the card: ``FitConfig.device`` defaults to "cuda",
 where the contractions are the CUDA kernels, and raise ``RuntimeError`` when
 no CUDA device is present. ``FitConfig(device="cpu")`` asks for the plain
 torch path (``TorchBackend``). Inputs (tensors or numpy arrays) are moved to
-the configured device as float32.
+the configured device as float32; a ``ChunkStore`` stays in host memory and
+streams (``backend="stream:cuda"``, or the default past
+``REPRO_STREAM_MIN_ROWS`` rows).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from ..core.falkon import FalkonModel, falkon_fit
 from ..core.gram import BackendLike, Kernel, make_kernel, resolve_backend
 from ..core.leverage import CenterSet
 from ..core.nystrom import exact_krr, nystrom_krr
+from ..stream import ChunkStore, StreamBackend
 from .samplers import BlessSampler, Sampler
 
 Tensor = torch.Tensor
@@ -76,12 +79,20 @@ class _KrrEstimator:
     def _device(self) -> torch.device:
         return require_cuda_device(self.config.device)
 
-    def _backend(self) -> Backend:
+    def _backend(self, x=None) -> Backend:
+        """The configured backend, else the device's; a ``ChunkStore`` input
+        streams through ``StreamBackend`` around the device's backend."""
         if self.config.backend is not None:
             return resolve_backend(self.config.backend)
-        return backend_for_device(self._device())
+        be = backend_for_device(self._device())
+        return StreamBackend(inner=be) if isinstance(x, ChunkStore) else be
 
-    def _as_data(self, a) -> Tensor:
+    def _as_data(self, a) -> Tensor | ChunkStore:
+        """A tensor on the configured device; a host-resident ``ChunkStore``
+        passes through untouched, so the streaming paths keep X out of
+        device memory."""
+        if isinstance(a, ChunkStore):
+            return a
         return torch.as_tensor(a, dtype=torch.float32, device=self._device())
 
     def predict(self, x, *, return_std: bool = False) -> Tensor | tuple[Tensor, Tensor]:
@@ -93,7 +104,7 @@ class _KrrEstimator:
         """
         if self.model_ is None:
             raise RuntimeError(f"{type(self).__name__} is not fitted; call .fit first")
-        pred = self.model_.predict(self._as_data(x), backend=self._backend())
+        pred = self.model_.predict(self._as_data(x), backend=self._backend(x))
         if not return_std:
             return pred
         return pred, torch.sqrt(self.predictive_variance(x))
@@ -102,7 +113,7 @@ class _KrrEstimator:
         """GP-style posterior variance per row of ``x`` ((n,), nonnegative)."""
         if self.model_ is None:
             raise RuntimeError(f"{type(self).__name__} is not fitted; call .fit first")
-        return self.model_.predictive_variance(self._as_data(x), backend=self._backend())
+        return self.model_.predictive_variance(self._as_data(x), backend=self._backend(x))
 
     def score(self, x, y) -> float:
         """Coefficient of determination R^2 (uniform average over outputs)."""
@@ -151,7 +162,7 @@ class FalkonRegressor(_KrrEstimator):
         x = self._as_data(x)
         y = self._as_data(y)
         cfg = self.config
-        backend = self._backend()
+        backend = self._backend(x)
         reuse = (center_set is None and self.warm_start and self.centers_ is not None
                  and self._fit_shape_ == tuple(x.shape))
         if not reuse:
@@ -257,7 +268,7 @@ class NystromRegressor(_KrrEstimator):
     def fit(self, x, y, *, key: int | torch.Generator | None = None) -> "NystromRegressor":
         """Sample centers and solve Def. 4 directly; ``y`` (n,) or (n, k)."""
         x = self._as_data(x)
-        backend = self._backend()
+        backend = self._backend(x)
         cs = self.sampler.sample(self._seed(key), x, self.kernel, backend=backend)
         m = int(cs.count)
         self.center_set_ = cs
@@ -271,7 +282,10 @@ class ExactKrr(_KrrEstimator):
     """Exact kernel ridge regression (Eq. 12) — the O(n^3) oracle."""
 
     def fit(self, x, y, *, key: int | torch.Generator | None = None) -> "ExactKrr":
-        """Solve Eq. 12 on the full Gram matrix; ``y`` (n,) or (n, k)."""
+        """Solve Eq. 12 on the full Gram matrix; ``y`` (n,) or (n, k). A
+        ``ChunkStore`` is brought to the device whole: materializing is the
+        algorithm here."""
+        x = x.to_device() if isinstance(x, ChunkStore) else x
         self.model_ = exact_krr(self.kernel, self._as_data(x), self._as_data(y),
                                 self.config.lam, backend=self._backend())
         return self

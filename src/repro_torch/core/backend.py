@@ -23,14 +23,16 @@ Two backends serve them:
     quadratic form K6.
 
 Backends are frozen dataclasses: hashable and comparable by configuration.
-Selection is by instance, by registry name ("torch" | "cuda"), or None for
-``default_backend(device)``, which picks ``CudaBackend`` for data on a CUDA
-device and raises for data elsewhere: the CPU path is taken only when the
-caller names it.
+Selection is by instance, by registry name ("torch" | "cuda" | "stream",
+or a composite "stream:<inner>"), or None for ``default_backend(device)``,
+which picks ``CudaBackend`` for data on a CUDA device (the out-of-core
+``StreamBackend`` around it past ``REPRO_STREAM_MIN_ROWS`` rows) and raises
+for data elsewhere: the CPU path is taken only when the caller names it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, ClassVar
 
 import torch
@@ -276,18 +278,39 @@ def require_cuda_device(device: torch.device | str = "cuda") -> torch.device:
     return device
 
 
-def default_backend(device: torch.device | str | None = None) -> Backend:
+#: rows past which ``default_backend`` streams X from host memory, as the
+#: reference's ``_STREAM_MIN_ROWS``. ``REPRO_STREAM_MIN_ROWS`` overrides it
+#: only for parity with the reference's documented knob (same name, same
+#: default); nothing in the port sets it.
+STREAM_MIN_ROWS = 1 << 21
+
+
+def _stream_min_rows() -> int:
+    env = os.environ.get("REPRO_STREAM_MIN_ROWS", "").strip()
+    return int(env) if env else STREAM_MIN_ROWS
+
+
+def default_backend(device: torch.device | str | None = None, *,
+                    n: int | None = None) -> Backend:
     """``CudaBackend`` for data on a CUDA device; anything else raises.
 
     ``device`` is where the data lives (None means the default, the card).
     Data on the CPU runs only when the caller names the CPU path
     (``TorchBackend`` / ``backend="torch"`` / ``FitConfig(device="cpu")``).
+    ``n`` is the dataset's row count when the caller knows it: at
+    ``REPRO_STREAM_MIN_ROWS`` rows and above the pick is wrapped in the
+    out-of-core ``StreamBackend`` (K1 keeps building each tile, X streams
+    chunk by chunk).
     """
     device = require_cuda_device("cuda" if device is None else device)
     if device.type != "cuda":
         raise RuntimeError(
             f"no backend is chosen by default for data on {device}; pass "
             "backend='torch' (or FitConfig(device='cpu')) to run on the CPU")
+    if n is not None and n >= _stream_min_rows():
+        from ..stream import StreamBackend
+
+        return StreamBackend(inner=CudaBackend())
     return CudaBackend()
 
 
@@ -298,5 +321,14 @@ def backend_for_device(device: torch.device | str) -> Backend:
     return CudaBackend() if device.type == "cuda" else TorchBackend()
 
 
+def _stream_backend() -> Backend:
+    """``StreamBackend`` factory, imported at resolve time
+    (``repro_torch.stream`` imports this module)."""
+    from ..stream import StreamBackend
+
+    return StreamBackend()
+
+
 register_backend("torch", TorchBackend)
 register_backend("cuda", CudaBackend)
+register_backend("stream", _stream_backend)

@@ -193,12 +193,22 @@ def _rls_dedup(kernel: Kernel, x_cand: Tensor, cand_mask: Tensor, x_all: Tensor,
                centers: CenterSet, lamn: float, *, backend, dbuf: int) -> Tensor:
     """Eq. 3 scores of candidates against a (possibly multiset) center set,
     deduplicated internally, through ``backend.rls_scores``. Clipped to
-    [_SCORE_FLOOR, 1]; 0 on invalid candidate slots."""
+    [_SCORE_FLOOR, 1]; 0 on invalid candidate slots.
+
+    A host-resident ``x_cand`` (a ``repro_torch.stream.ChunkStore``, in the
+    regime where every row is a candidate) never meets ``kernel.diag``: the
+    empty-center case routes through ``rls_scores`` with an all-masked
+    buffer, which is exactly K_ii / lamn, as the reference does."""
     if int(centers.count) > 0:
         dd_idx, dd_mask, dd_reg = _dedup_centers(centers, lamn, dbuf)
         s = backend.rls_scores(kernel, x_cand, x_all[dd_idx], dd_mask, dd_reg, lamn)
-    else:
+    elif isinstance(x_cand, Tensor):
         s = kernel.diag(x_cand) / lamn
+    else:
+        dev = x_all.device
+        s = backend.rls_scores(kernel, x_cand, x_all[torch.zeros((dbuf,), dtype=torch.int64)],
+                               torch.zeros((dbuf,), dtype=torch.bool, device=dev),
+                               torch.ones((dbuf,), dtype=torch.float32, device=dev), lamn)
     s = torch.clamp(s, _SCORE_FLOOR, 1.0)
     return torch.where(cand_mask, s, torch.zeros_like(s))
 

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..testing import faults
 from . import health
 from .gram import BackendLike, Kernel, resolve_backend
 from .leverage import CenterSet  # noqa: F401 — re-exported for callers
@@ -212,7 +213,7 @@ class FalkonModel:
                 "model was built without it — refit via falkon_fit / "
                 "nystrom_krr / exact_krr")
         be = resolve_backend(backend if backend is not None else self.backend,
-                             device=x.device)
+                             device=x.device, n=x.shape[0])
         m = self.centers.shape[0]
         dev = self.centers.device
         a = (torch.ones((m,), dtype=torch.float32, device=dev) if self.a_diag is None
@@ -223,10 +224,20 @@ class FalkonModel:
         return torch.clamp(lam_n * scores, min=0.0)
 
     def predict(self, x: Tensor, *, backend: BackendLike = None) -> Tensor:
-        """K(x, centers) alpha through the seam: (n,) or (n, k)."""
+        """K(x, centers) alpha through the seam: (n,) or (n, k).
+
+        The serving dispatch boundary: it hosts the ``dispatch.latency``,
+        ``backend.error`` and ``gram.nan_tile`` injection points (one dict
+        check when nothing is armed; ``repro_torch.testing.faults``)."""
         be = resolve_backend(backend if backend is not None else self.backend,
-                             device=x.device)
-        return be.knm_matvec(self.kernel, x, self.centers, self.alpha)
+                             device=x.device, n=x.shape[0])
+        if faults.active():
+            faults.sleep_if(rows=x.shape[0], centers=self.centers.shape[0])
+            faults.raise_if()
+        out = be.knm_matvec(self.kernel, x, self.centers, self.alpha)
+        if faults.active():
+            out = faults.corrupt("gram.nan_tile", out)
+        return out
 
 
 def falkon_fit(
@@ -259,7 +270,7 @@ def falkon_fit(
     """
     n = x.shape[0]
     m = centers.shape[0]
-    backend = resolve_backend(backend, device=x.device)
+    backend = resolve_backend(backend, device=x.device, n=n)
     if y.ndim != 1 and callback is not None:
         raise ValueError("per-iteration callback is single-output only; "
                          "fit columns separately to trace them")

@@ -112,26 +112,39 @@ def backend_names() -> list[str]:
 
 
 def resolve_backend(spec: BackendLike = None, *,
-                    device: torch.device | str | None = None) -> "Backend":
+                    device: torch.device | str | None = None,
+                    n: int | None = None) -> "Backend":
     """Resolve a backend spec: instance (passthrough), name, or None.
 
-    ``None`` picks ``backend.default_backend(device)``: ``CudaBackend`` for
-    data on a CUDA device; data on the CPU raises unless the caller names the
-    CPU path (``"torch"``). Composite ``"stream:..."`` specs are not served
-    yet.
+    ``None`` picks ``backend.default_backend(device, n=n)``: ``CudaBackend``
+    for data on a CUDA device, wrapped in the out-of-core ``StreamBackend``
+    past ``REPRO_STREAM_MIN_ROWS`` rows (``n``, when the caller knows it);
+    data on the CPU raises unless the caller names the CPU path
+    (``"torch"``).
+
+    Composite specs ``"outer:inner"`` (``"stream:cuda"``, ``"stream:torch"``)
+    resolve the outer name, then hand it the resolved inner through its
+    ``with_inner`` hook, as ``repro.core.gram.resolve_backend`` does.
     """
     _ensure_backends_loaded()
     if spec is None:
         from .backend import default_backend
 
-        return default_backend(device)
+        return default_backend(device, n=n)
     if isinstance(spec, str):
+        outer_name, _, inner_spec = spec.partition(":")
         try:
-            return _BACKEND_REGISTRY[spec]()
+            outer = _BACKEND_REGISTRY[outer_name]()
         except KeyError:
             raise ValueError(
-                f"unknown backend {spec!r}; registered: {sorted(_BACKEND_REGISTRY)}"
+                f"unknown backend {outer_name!r}; registered: {sorted(_BACKEND_REGISTRY)}"
             ) from None
+        if not inner_spec:
+            return outer
+        if not hasattr(outer, "with_inner"):
+            raise ValueError(f"backend {outer_name!r} is not composable (no with_inner); "
+                             f"cannot resolve {spec!r}")
+        return outer.with_inner(resolve_backend(inner_spec, device=device, n=n))
     return spec
 
 

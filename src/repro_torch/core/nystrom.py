@@ -6,12 +6,14 @@
 The PyTorch counterpart of ``repro.core.nystrom``: dense O(n M^2) / O(n^3)
 solves that FALKON's CG must converge to. The Gram blocks come through the
 ``Backend`` seam; the health fences are always armed (the jitter ladder
-factors H or raises, and alpha passes a finite-output fence).
+factors H or raises, and alpha passes a finite-output fence). ``nystrom_krr``
+hosts the ``kmm.indefinite`` injection point.
 """
 from __future__ import annotations
 
 import torch
 
+from ..testing import faults
 from . import health
 from .falkon import FalkonModel
 from .gram import BackendLike, Kernel, resolve_backend
@@ -23,9 +25,11 @@ def nystrom_krr(kernel: Kernel, x: Tensor, y: Tensor, centers: Tensor, lam: floa
                 *, backend: BackendLike = None) -> FalkonModel:
     """Def. 4 direct solve; ``y`` may be (n,) or (n, k)."""
     n = x.shape[0]
-    be = resolve_backend(backend, device=x.device)
+    be = resolve_backend(backend, device=x.device, n=n)
     knm = be.gram_block(kernel, x, centers)
     kmm = be.gram_block(kernel, centers, centers)
+    if faults.active():
+        kmm = faults.corrupt("kmm.indefinite", kmm)
     h = knm.T @ knm + lam * n * kmm
     chol, _ = health.safe_cholesky(h, what="Nystrom-KRR H = KnM^T KnM + lam n K_MM")
     rhs = knm.T @ y

@@ -672,3 +672,80 @@ def test_smoke_jamba_on_the_card_matches_the_cpu_and_runs_the_kernels(dev):
     for _ in range(4):
         eng.step()
     assert len(eng.finish(0)) == 5
+
+
+# -- KRR serving, streaming, durable and online FALKON on the card -------------------
+
+
+def test_device_chunks_from_pinned_memory_equal_the_device_resident_result(dev):
+    # Sixteen distinct chunks copied from pinned host memory on a side stream
+    # while K1 (and the product after it) reads the previous one: a chunk
+    # block handed back to the allocator before the consumer's stream is done
+    # with it (no record_stream) would give other bits than the slices of the
+    # same rows already on the card.
+    from repro_torch.stream import ChunkStore, StreamBackend
+
+    x, z, v, _ = _inputs(dev, 1 << 20, 2048, 18, 3)
+    store = ChunkStore(x, chunk=1 << 16)
+    assert store.x.is_pinned() and store.n_chunks == 16
+    sb = StreamBackend(inner=core.CudaBackend(), chunk=1 << 16)
+    kern = core.make_kernel("gaussian", sigma=4.0)
+    want = sb.knm_matvec(kern, x, z, v)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        assert torch.equal(sb.knm_matvec(kern, store, z, v), want)
+    assert kernels.launch_counts()["gram"] == 3 * 16
+    op = sb.knm_quadratic(kern, store, z)
+    assert torch.equal(op(v), sb.knm_quadratic(kern, x, z)(v))
+
+
+def test_streamed_fit_matches_the_cuda_backend_fit(dev):
+    from repro_torch.stream import ChunkStore
+
+    x, z, _, _ = _inputs(dev, 40_000, 256, 8, 1)
+    y = torch.sin(2 * x[:, 0]) + 0.3 * x[:, 1]
+    kern = core.make_kernel("gaussian", sigma=2.0)
+    ref = core.falkon_fit(kern, x, y, x[:256], 1e-4, iters=20, backend=core.CudaBackend())
+    fit = core.falkon_fit(kern, ChunkStore(x, y, chunk=4096), y, x[:256], 1e-4, iters=20,
+                          backend="stream:cuda")
+    want = ref.predict(x[:4096])
+    _close(fit.predict(x[:4096]), want, 1e-3 * float(want.abs().max()))
+
+
+def test_async_krr_server_round_on_the_card(dev):
+    from repro_torch.serving import AsyncKrrServer, RequestStatus, ServeConfig
+    from repro_torch.testing import faults
+
+    x, _, _, _ = _inputs(dev, 4000, 48, 6, 1)
+    kern = core.make_kernel("gaussian", sigma=1.5)
+    model = core.falkon_fit(kern, x, torch.sin(2 * x[:, 0]), x[:48], 1e-3, iters=15)
+    g = torch.Generator().manual_seed(0)
+    reqs = [torch.randn((int(r), 6), generator=g) for r in torch.randint(1, 65, (40,), generator=g)]
+    srv = AsyncKrrServer(model, config=ServeConfig(max_wave=256, min_bucket=16))
+    rids = [srv.submit(q) for q in reqs]
+    kernels.reset_launch_counts()
+    with faults.fault("gram.nan_tile", times=1):
+        srv.run_until_idle()
+    assert kernels.launch_counts()["knm_matvec"] == srv.stats["dispatches"]
+    assert srv.stats["wave_failures"] == 1 and srv.stats["splits"] >= 1
+    for rid, q in zip(rids, reqs):
+        assert srv.status(rid) == RequestStatus.DONE
+        want = model.predict(q.to(dev))
+        _close(srv.result(rid), want, 1e-4 * float(want.abs().max()))
+
+
+def test_durable_resume_is_bit_identical_on_the_card(dev, tmp_path):
+    from repro_torch.online import resumable_streamed_fit
+    from repro_torch.stream import ChunkStore
+    from repro_torch.testing import faults
+
+    x, _, _, _ = _inputs(dev, 40_000, 8, 6, 1)
+    store = ChunkStore(x, torch.sin(2 * x[:, 0]), chunk=4096)  # 10 chunks
+    kern = core.make_kernel("gaussian", sigma=1.5)
+    kw = dict(centers=x[:300], lam=1e-4, iters=20, backend="stream:cuda", ckpt_every=3)
+    whole = resumable_streamed_fit(kern, store, ckpt_dir=str(tmp_path / "whole"), **kw)
+    with faults.fault("ckpt.torn_write", stage="pre_rename", skip=1, times=1):
+        with pytest.raises(faults.FaultInjected):
+            resumable_streamed_fit(kern, store, ckpt_dir=str(tmp_path / "killed"), **kw)
+    resumed = resumable_streamed_fit(kern, store, ckpt_dir=str(tmp_path / "killed"), **kw)
+    assert torch.equal(resumed.alpha, whole.alpha) and resumed.alpha.device.type == "cuda"

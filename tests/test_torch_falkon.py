@@ -179,7 +179,8 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
     assert [lvl["lam"] for lvl in fb["levels"]][-1] == 1e-2
     bless_t = fb.pop("tensors")
     calls = chip_smoke.main_path_calls(tensors, sigma=4.0, bless_t=bless_t, folds=3)
-    extra = ["knm_t@cv", "knm_matvec@cv", "gram@slab", "quadform@ladder"]
+    extra = ["knm_t@cv", "knm_matvec@cv", "gram@slab", "gram@stream", "knm_matvec@wave",
+             "knm_matvec@wave_half", "quadform@ladder"]
     assert [c[0] for c in calls] == list(chip_smoke.KERNELS) + extra
     masked = next(c for c in calls if c[0] == "falkon_matvec_masked")
     assert masked[1:5] == (1536, int(bless_t["center_set"].count), 18, 3)
@@ -189,6 +190,13 @@ def test_chip_smoke_phases_rehearse_on_the_cpu(monkeypatch):
     assert panel[1:5] == masked[1:5] and panel[5]().shape == (1536, 3)
     slab = next(c for c in calls if c[0] == "gram@slab")  # one variance slab: all 512 rows here
     assert slab[1:4] == (512, 120, 18) and slab[5]().shape == (512, 120)
+    # phase 12's shapes: one streamed chunk (all 1 536 rows here) against the
+    # BLESS centers, and serving waves (all 512 test rows here) against M
+    tile = next(c for c in calls if c[0] == "gram@stream")
+    assert tile[1:4] == (1536, masked[2], 18) and tile[5]().shape == (1536, masked[2])
+    for name in ("knm_matvec@wave", "knm_matvec@wave_half"):
+        wave = next(c for c in calls if c[0] == name)
+        assert wave[1:5] == (512, 120, 18, 1) and wave[5]().shape == (512,)
     errs = chip_smoke.main_path_parity(calls)
     assert set(errs) == set(chip_smoke.KERNELS) | set(extra)
     for name, n, m, d, k, kern, _, library in calls:
