@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
-KRR serving, streaming and online paths and its Jamba serving path on one H100.
+KRR serving, streaming, online, sharded, guarded and fused paths and its Jamba
+serving path on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
 
@@ -118,6 +119,28 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 phase 5's K2 fit is, plus 1e-3 of max|fp64 pred|, the durable
                 and online ones (fp64 accumulators) within 1e-4 of it. Runs
                 before phases 9-11 in main().
+ 13. core-rest  run right after phase 12, on phase 4's data and phase 5's
+                BLESS centers and fit; counts reset before the phase and read
+                after (plus its ranks'). (a) falkon_fit through ShardedBackend
+                in a one-rank NCCL group (file:// rendezvous): alpha bit for
+                bit the CudaBackend refit's, which must be phase 5's, with the
+                same K1, K2, K3 launches. (b) two ranks, each its own process
+                on the one card, in a gloo group, 5 * 10^5 rows each (K2, K3,
+                K4 on them): the ranks' alpha and predictions equal bit for
+                bit; predictions no farther from phase 12's fp64 referee than
+                phase 5's K2 fit, plus 1e-3; test error within 1e-3 of phase
+                5's; default_backend(n=10^6) in the group is ShardedBackend.
+                (c) GuardedBackend(): alpha bit for bit the refit's, the same
+                launches, no backend_fallback event; around a FaultyBackend
+                that raises on its 5th quadratic call: one event naming no
+                fallback, and the fit raises (the plain version never serves
+                the card's tensors). (d) the fused fit (TorchBackend, so one
+                CUDA graph per bucket) on 999 000 rows, then on 998 000 at
+                lam 1e-5 and sigma 5: one capture, then none; each fit's test
+                predictions no farther from an fp64 host-loop fit on the same
+                inputs than the fp32 host loop's, plus 1e-3 of max|pred|; the
+                second fit's predictions within 1e-3 of max|pred| of the host
+                loop's.
 
   9. lm parity  K8 flash_attention and K9 ssd against their plain versions on
                 the card, fp32 and bf16: K8 causal and bidirectional, GQA
@@ -642,7 +665,7 @@ def refit_agreement(kern, x, y, z, a_diag, xte, lam: float, iters: int) -> dict:
 
     def refit(backend, dtype=torch.float32):
         model = falkon_fit(kern, x.to(dtype), y.to(dtype), z.to(dtype), lam,
-                           a_diag=a_diag.to(dtype), iters=iters, backend=backend)
+                           a_diag=a_diag.to(dtype), iters=iters, backend=backend, fused=False)
         return model, model.predict(xte.to(dtype), backend=backend)
 
     cuda_model, cuda = refit(CudaBackend())
@@ -1246,10 +1269,12 @@ def exact_cv(device, x, y, kern, center_set, *, lam: float, folds: int, iters: i
              seed: int) -> dict:
     """A ``folds``-fold sweep at one lam against a naive CudaBackend refit on
     each fold's training rows, same centers: max relative score difference.
-    The sweep's solve is run once more as ``falkon_fit(row_mask=)`` to read its
-    residual reduction (and to check that it gives the sweep's scores)."""
+    The sweep's solve is run once more as ``falkon_fit(row_mask=)`` on the
+    sweep's own backend (the device's) to read its residual reduction (and
+    to check that it gives the sweep's scores)."""
     from repro_torch.api import KFoldSweep
     from repro_torch.core import CudaBackend, falkon_fit
+    from repro_torch.core.backend import backend_for_device
 
     res = KFoldSweep(kernel=kern, lams=(lam,), folds=folds, iters=iters, seed=seed,
                      device=str(device)).run(x, y, center_set=center_set)
@@ -1259,7 +1284,7 @@ def exact_cv(device, x, y, kern, center_set, *, lam: float, folds: int, iters: i
     held = res.fold_id[:, None] == torch.arange(folds, device=x.device)[None, :]
     train = (~held).float()
     panel = falkon_fit(kern, x, y[:, None] * train, z, lam, a_diag=a_diag, iters=iters,
-                       backend=CudaBackend(), row_mask=train)
+                       backend=backend_for_device(x.device), row_mask=train)
     sq = (panel.predict(x) - y[:, None]) ** 2
     replay = torch.sum(sq * held, dim=0) / torch.sum(held, dim=0)
     naive, naive_red = [], []
@@ -1407,7 +1432,7 @@ def fp64_referee(kern, x, y, z, a_diag, lam: float, iters: int, xte) -> torch.Te
 
     be = TorchBackend()
     model = falkon_fit(kern, x.double(), y.double(), z.double(), lam, a_diag=a_diag.double(),
-                       iters=iters, backend=be)
+                       iters=iters, backend=be, fused=False)
     return model.predict(xte.double(), backend=be)
 
 
@@ -1679,6 +1704,328 @@ def krr_online(device, t: dict, bless_t: dict, *, sigma: float = 4.0, lam: float
             bad.append(f"kernels not launched on the serving / streaming path: {missing}")
     if bad:
         raise PhaseError("krr-online failed: " + "; ".join(bad))
+    res["referee_t"] = {"ref64": ref64, "scale64": scale64, "k2_fit": res["referee"]["k2_fit"]}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 13. the rest of repro.core: sharded, guarded and fused fits
+# ---------------------------------------------------------------------------
+
+#: the kernels phase 13 must launch on the card: K1 (K_MM), K2 and K3 in the
+#: sharded and guarded fits, K4 in their predictions.
+CORE_REST_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec")
+#: phase 13's fused fits: the first on this many rows, the second on 1 000
+#: fewer, both in one 8 192-row bucket (10^6 rows and 999 000 straddle a
+#: bucket edge).
+FUSED_ROWS = 999_000
+
+
+def sharded_rank(rank: int, world: int, tmp: str, device: str, sigma: float, lam: float,
+                 iters: int) -> None:
+    """One rank of phase 13 (b), in its own process: a gloo group on
+    ``tmp``'s file, the whole X from ``tmp/inputs.pt`` on ``device``, a
+    ``ShardedBackend`` fit and its predictions (the local contractions are
+    the kernels on the card); writes ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import falkon_fit, make_kernel
+    from repro_torch.core.backend import ShardedBackend, backend_for_device, default_backend
+    from repro_torch.kernels import build
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world)
+    try:
+        inp = torch.load(f"{tmp}/inputs.pt")
+        x, y, z, a, xte = (inp[k].to(device) for k in ("x", "y", "z", "a_diag", "xte"))
+        kern = make_kernel("gaussian", sigma=sigma)
+        picked = (default_backend(device, n=x.shape[0]) if on_card
+                  else backend_for_device(device, n=x.shape[0]))
+        sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = falkon_fit(kern, x, y, z, lam, a_diag=a, iters=iters, backend=ShardedBackend())
+        sync(device)
+        fit_s = time.perf_counter() - t0
+        pred = model.predict(xte)
+        sync(device)
+        torch.save({"alpha": model.alpha.cpu(), "pred": pred.cpu(), "fit_s": fit_s,
+                    "launches": kernels.launch_counts(), "picked": type(picked).__name__,
+                    "collectives": ShardedBackend.collectives},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def core_rest(device, t: dict, bless_t: dict, referee: dict, bless_test_error: float, *,
+              sigma: float = 4.0, lam: float = 1e-6, iters: int = 20, world: int = 2,
+              fused_rows: int = FUSED_ROWS, lam2: float = 1e-5, sigma2: float = 5.0,
+              fault_call: int = 5, timeout: float = 600.0) -> dict:
+    """Phase 13 on phase 4's data and phase 5's BLESS centers, weights and
+    fit, with the launch counts reset just before and read just after (the
+    ranks of (b) add theirs):
+
+      (a) ``falkon_fit(backend=ShardedBackend())`` in a one-rank group
+          (NCCL on the card, gloo on the CPU, ``file://`` rendezvous): alpha
+          equal bit for bit to the host-loop fit on the device's backend
+          (on the card ``CudaBackend``, whose alpha must equal phase 5's),
+          with the same K1, K2 and K3 launches.
+      (b) ``world`` ranks, each its own process on the same device, in a
+          gloo group: each rank's alpha equal to the others' bit for bit;
+          predictions no farther from phase 12's fp64 referee (``referee``:
+          its predictions and the K2 fit's distance) than the K2 fit is,
+          plus E2E_TOL; test error within 1e-3 of phase 5's; in the group
+          the default pick for n rows is ``ShardedBackend`` (from
+          ``SHARD_MIN_ROWS`` rows; the device's backend below).
+      (c) ``GuardedBackend`` around the device's backend: on the happy path
+          alpha equal bit for bit to (a)'s reference fit, the same launches,
+          no ``backend_fallback`` event; around ``FaultyBackend`` armed to
+          raise on the ``fault_call``-th quadratic-op call: one event (for
+          ``knm_quadratic``). On the card the fit then raises the fault and
+          the event names no fallback (the plain version never serves the
+          card's tensors); on the CPU the fallback finishes the fit, whose
+          predictions lie within E2E_TOL * max|pred| of the clean fit's.
+      (d) on an emptied plan cache, ``falkon_fit(backend="torch")`` (so
+          fused) on the first ``fused_rows`` rows, then ``fused_rows -
+          1000`` rows at ``lam2`` and ``sigma2``: on the card one plan (one
+          graph capture) for the first fit and none for the second; on the
+          CPU, where the fused fit is the host loop, none. Each fit is
+          refereed by an fp64 host-loop fit on the same rows, centers, lam
+          and sigma (``fp64_referee``): its test predictions no farther from
+          it than the fp32 host loop's (``fused=False``), plus E2E_TOL. The
+          second fit, at the better conditioned ``lam2``, is also held to
+          the host loop directly: predictions within E2E_TOL of max|pred|.
+          At ``lam`` the fused-host distances are logged, not gated: both
+          paths converge to fp32 noise, where operators that differ by
+          ~1e-7 (the padded last block) part by 1.7e-2 of max|alpha| and
+          1.6e-3 of max|pred| on the H100.
+    """
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import falkon_fit, health, make_kernel
+    from repro_torch.core import falkon as falkon_mod
+    from repro_torch.core.backend import (SHARD_MIN_ROWS, GuardedBackend, ShardedBackend,
+                                          TorchBackend, backend_for_device)
+    from repro_torch.core.distributed import data_group, sum_ranks
+    from repro_torch.testing import faults
+
+    on_card = torch.device(device).type == "cuda"
+    x, y, xte, yte = t["x"], t["y"], t["xte"], t["yte"]
+    z, a = bless_t["z"], bless_t["a_diag"]
+    kern = make_kernel("gaussian", sigma=sigma)
+    be = backend_for_device(device)
+    core_names = ("gram", "falkon_matvec", "knm_t")
+
+    def fit(backend, **kw):
+        """(model, seconds, launches) of one fit on phase 5's centers."""
+        sync(device)
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        model = falkon_fit(kern, x, y, z, lam, a_diag=a, iters=iters, backend=backend, **kw)
+        sync(device)
+        after = kernels.launch_counts()
+        return model, time.perf_counter() - t0, {n: after[n] - before[n] for n in core_names}
+
+    def to_referee(pred: torch.Tensor) -> float:
+        return float((pred.double() - referee["ref64"]).abs().max()) / referee["scale64"]
+
+    bad = []
+    res = {"n_train": x.shape[0], "m": z.shape[0], "lam": lam, "iters": iters}
+    sync(device)
+    kernels.reset_launch_counts()
+
+    # (a) a one-rank group
+    ref, ref_s, ref_launches = fit(be, fused=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            sum_ranks(data_group(), torch.zeros(1, device=device))  # builds the communicator
+            c0 = ShardedBackend.collectives
+            sharded, sharded_s, sharded_launches = fit(ShardedBackend())
+            collectives = ShardedBackend.collectives - c0
+        finally:
+            dist.destroy_process_group()
+    res["a"] = {"fit_s": sharded_s, "reference_fit_s": ref_s, "collectives": collectives,
+                "launches": sharded_launches, "reference_launches": ref_launches,
+                "bit_identical": torch.equal(sharded.alpha, ref.alpha),
+                "reference_equals_phase5": torch.equal(ref.alpha, bless_t["alpha"])}
+    if not res["a"]["bit_identical"]:
+        bad.append("(a) the one-rank sharded alpha differs from the device backend's")
+    if on_card and not res["a"]["reference_equals_phase5"]:
+        bad.append("(a) the CudaBackend refit's alpha differs from phase 5's")
+    if sharded_launches != ref_launches:
+        bad.append(f"(a) launches {sharded_launches} against the reference fit's {ref_launches}")
+
+    # (b) ``world`` ranks on the one device, each its own process
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"x": x.cpu(), "y": y.cpu(), "z": z.cpu(), "a_diag": a.cpu(),
+                    "xte": xte.cpu()}, f"{tmp}/inputs.pt")
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                        f"chip_smoke.sharded_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
+                        f"{sigma!r}, {lam!r}, {iters!r})")
+                with open(f"{tmp}/rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"(b) the {world} ranks did not finish in {timeout} s") from None
+        finally:
+            for p in procs:
+                p.kill()
+        wall_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
+            raise PhaseError(f"(b) ranks {failed} failed; rank {failed[0]}'s output:\n{tail}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    pred_b = ranks[0]["pred"].to(device)
+    res["b"] = {"world": world, "wall_s": wall_s, "fit_s": [r["fit_s"] for r in ranks],
+                "launches": [r["launches"] for r in ranks],
+                "collectives": [r["collectives"] for r in ranks],
+                "picked": [r["picked"] for r in ranks],
+                "ranks_bit_identical": all(torch.equal(r["alpha"], ranks[0]["alpha"])
+                                           and torch.equal(r["pred"], ranks[0]["pred"])
+                                           for r in ranks),
+                "referee": to_referee(pred_b), "k2_fit_referee": referee["k2_fit"],
+                "test_error": float(torch.mean((torch.sign(pred_b) != yte).float())),
+                "bless_test_error": bless_test_error}
+    if not res["b"]["ranks_bit_identical"]:
+        bad.append("(b) the ranks' alpha or predictions differ")
+    if not res["b"]["referee"] <= referee["k2_fit"] + E2E_TOL:
+        bad.append(f"(b) the {world}-rank fit is {res['b']['referee']:.3e} from the fp64 referee, "
+                   f"farther than the K2 fit ({referee['k2_fit']:.3e}) + {E2E_TOL}")
+    if not abs(res["b"]["test_error"] - bless_test_error) <= 1e-3:
+        bad.append(f"(b) test error {res['b']['test_error']:.5f} against phase 5's "
+                   f"{bless_test_error:.5f}")
+    want = "ShardedBackend" if x.shape[0] >= SHARD_MIN_ROWS else type(be).__name__
+    if res["b"]["picked"] != [want] * world:
+        bad.append(f"(b) the default pick for {x.shape[0]} rows in the group was "
+                   f"{res['b']['picked']}, not {want}")
+    if on_card and any(r["launches"]["falkon_matvec"] != iters for r in ranks):
+        bad.append(f"(b) each rank's K2 launches {[r['launches']['falkon_matvec'] for r in ranks]}"
+                   f" are not {iters}")
+
+    # (c) the opt-in guard: the happy path, then a primary that dies once
+    health.clear_events()
+    guarded, guarded_s, guarded_launches = fit(GuardedBackend(primary=be))
+    happy_events = len(health.events("backend_fallback"))
+    skip = 2 + fault_call - 1  # K_MM's gram_block and knm_t hit the hook first
+    dying, raised = None, None
+    with faults.fault("backend.error", skip=skip, times=1) as f, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        try:
+            dying, _, _ = fit(GuardedBackend(primary=faults.FaultyBackend(be)))
+        except faults.FaultInjected as e:
+            raised = repr(e)
+    sync(device)
+    events = health.events("backend_fallback")
+    res["c"] = {"fit_s": guarded_s, "launches": guarded_launches,
+                "bit_identical": torch.equal(guarded.alpha, ref.alpha),
+                "happy_events": happy_events, "fired": f.fired, "raised": raised,
+                "events": [e["method"] for e in events],
+                "event_fallbacks": [e["fallback"] for e in events],
+                "dying_pred_err": None if dying is None else _rel(dying.predict(xte),
+                                                                   ref.predict(xte))}
+    health.clear_events()
+    if not (res["c"]["bit_identical"] and guarded_launches == ref_launches and happy_events == 0):
+        bad.append(f"(c) guarded happy path: bit-identical {res['c']['bit_identical']}, launches "
+                   f"{guarded_launches} against {ref_launches}, events {happy_events}")
+    want_fallbacks = [None] if on_card else [TorchBackend.name]
+    if not (f.fired == 1 and res["c"]["events"] == ["knm_quadratic"]
+            and res["c"]["event_fallbacks"] == want_fallbacks):
+        bad.append(f"(c) the dying primary: fired {f.fired}, events {res['c']['events']}, "
+                   f"fallbacks {res['c']['event_fallbacks']} (want {want_fallbacks})")
+    if on_card and (raised is None or dying is not None):
+        bad.append("(c) on the card the dying primary's fit was served instead of raising")
+    if not on_card and not (dying is not None and res["c"]["dying_pred_err"] <= E2E_TOL):
+        bad.append(f"(c) the guarded fit's predictions {res['c']['dying_pred_err']} of "
+                   f"max|pred| from the clean fit's (raised {raised})")
+
+    # (d) the fused fit, twice in one bucket, each against the host loop; an
+    # empty plan cache first, so the first fit builds (captures) its plan
+    falkon_mod.release_fused_plans()
+    fits = {}
+    for name, rows, lam_d, sig_d in (("first", fused_rows, lam, sigma),
+                                     ("second", fused_rows - 1000, lam2, sigma2)):
+        k_d = make_kernel("gaussian", sigma=sig_d)
+        args = (k_d, x[:rows], y[:rows], z, lam_d)
+        plans = falkon_mod._FUSED_FIT_TRACES
+        sync(device)
+        held = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        fused = falkon_fit(*args, a_diag=a, iters=iters, backend="torch")
+        sync(device)
+        fused_s = time.perf_counter() - t0
+        held = (torch.cuda.memory_allocated() if on_card else 0) - held
+        built = falkon_mod._FUSED_FIT_TRACES - plans
+        t0 = time.perf_counter()
+        falkon_fit(*args, a_diag=a, iters=iters, backend="torch")
+        sync(device)
+        again_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = falkon_fit(*args, a_diag=a, iters=iters, backend="torch", fused=False)
+        sync(device)
+        host_s = time.perf_counter() - t0
+        ref_d = fp64_referee(k_d, x[:rows], y[:rows], z, a, lam_d, iters, xte)
+        pf, ph = fused.predict(xte), host.predict(xte)
+        scale = float(ref_d.abs().max())
+        fits[name] = {"rows": rows, "lam": lam_d, "sigma": sig_d, "plans_built": built,
+                      "allocated_bytes_after": held,
+                      "fit_s": fused_s, "repeat_fit_s": again_s, "host_fit_s": host_s,
+                      "fused_fp64": float((pf.double() - ref_d).abs().max()) / scale,
+                      "host_fp64": float((ph.double() - ref_d).abs().max()) / scale,
+                      "pred_err": _rel(pf, ph), "alpha_err": _rel(fused.alpha, host.alpha),
+                      "cg_residual_reduction": float(fused.diagnostics.reduction.max())}
+    if on_card:
+        block = TorchBackend().block
+        n_pad = -(-fused_rows // block) * block
+        plan = next(p for key, p in falkon_mod._FUSED_PLANS.items()
+                    if key[0] == n_pad and key[2] == z.shape[0] and key[4] == iters)
+        fits["replay_ms"] = _cuda_ms(plan.run, 3)
+    res["d"] = fits
+    falkon_mod.release_fused_plans()  # the plans' buffers and graph pools
+    want_plans = (1, 0) if on_card else (0, 0)
+    if (fits["first"]["plans_built"], fits["second"]["plans_built"]) != want_plans:
+        bad.append(f"(d) plans built: {fits['first']['plans_built']} for the first fit, "
+                   f"{fits['second']['plans_built']} for the second (want {want_plans})")
+    if not fits["second"]["pred_err"] <= E2E_TOL:
+        bad.append(f"(d) the second fused fit's predictions are {fits['second']['pred_err']:.3e} "
+                   f"of max|pred| from the host loop's")
+    for name in ("first", "second"):
+        if not fits[name]["fused_fp64"] <= fits[name]["host_fp64"] + E2E_TOL:
+            bad.append(f"(d) the {name} fused fit is {fits[name]['fused_fp64']:.3e} from its fp64 "
+                       f"referee, farther than the host loop ({fits[name]['host_fp64']:.3e}) "
+                       f"+ {E2E_TOL}")
+
+    sync(device)
+    res["launches"] = {name: count + sum(r[name] for r in res["b"]["launches"])
+                       for name, count in kernels.launch_counts().items()}
+    log(f"core_rest: {json.dumps(res)}")
+    if on_card:
+        missing = [name for name in CORE_REST_PATH if res["launches"][name] == 0]
+        if missing:
+            bad.append(f"kernels not launched on the sharded / guarded path: {missing}")
+    if bad:
+        raise PhaseError("core-rest failed: " + "; ".join(bad))
     return res
 
 
@@ -2102,6 +2449,7 @@ def main(argv=None) -> int:
         cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
         clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
         krr = krr_online("cuda", tensors, bless_t, seed=args.seed)
+        rest = core_rest("cuda", tensors, bless_t, krr.pop("referee_t"), fb["test_error"])
         del tensors, bless_t  # the LM phases need the card's memory
         _free("cuda")
         lm_worst = lm_kernel_parity("cuda", seed=args.seed)
@@ -2111,10 +2459,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
     # launches: the main paths' counts added (each reset just before its path):
-    # the four FALKON paths and phase 12's serving / streaming / online work
-    # for K1-K7, the LM forward of phase 10 and the prefill + serving of
+    # the four FALKON paths, phase 12's serving / streaming / online work and
+    # phase 13's sharded and guarded fits (its ranks' too) for K1-K7, the LM forward of phase 10 and the prefill + serving of
     # phase 11 for K8 and K9
-    paths = (e2e, fb, cv, clf, krr, dvf, srv)
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv)
     launches = {name: sum(p["launches"][name] for p in paths) for name in {**KERNELS,
                                                                              **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -2165,6 +2513,22 @@ def main(argv=None) -> int:
         f"{krr['stream']['launches']['gram']} x {k1_ms:.4f} ms <= "
         f"{krr['stream']['launches']['gram'] * k1_ms / 1e3:.4f} s of {krr['stream']['fit_s']:.4f} s; "
         f"fp64 referee distances {json.dumps(krr['referee'])}")
+    ra, rb, rc, rd = rest["a"], rest["b"], rest["c"], rest["d"]
+    log(f"core-rest: (a) one-rank sharded fit {ra['fit_s']:.3f} s ({ra['collectives']} "
+        f"collectives) against the CudaBackend refit's {ra['reference_fit_s']:.3f} s and phase "
+        f"5's FALKON-BLESS fit {fb['fit_s']:.3f} s; (b) {rb['world']} ranks on one card: fits "
+        f"{json.dumps(rb['fit_s'])} s, wall {rb['wall_s']:.1f} s, fp64 referee "
+        f"{rb['referee']:.3e} (K2 fit {rb['k2_fit_referee']:.3e}), test error "
+        f"{rb['test_error']:.5f}; (c) guarded {rc['fit_s']:.3f} s, dying primary raised "
+        f"{rc['raised']}, events {rc['events']} naming fallbacks {rc['event_fallbacks']}; "
+        f"(d) fused fit {rd['first']['fit_s']:.3f} s "
+        f"(with the capture), repeat {rd['first']['repeat_fit_s']:.3f} s, replay alone "
+        f"{rd.get('replay_ms', float('nan')):.2f} ms, host loop {rd['first']['host_fit_s']:.3f} s; "
+        f"second bucket fit {rd['second']['fit_s']:.3f} s; fp64 referee fused / host "
+        f"{rd['first']['fused_fp64']:.3e} / {rd['first']['host_fp64']:.3e} and "
+        f"{rd['second']['fused_fp64']:.3e} / {rd['second']['host_fp64']:.3e}, second fit "
+        f"against the host loop {rd['second']['pred_err']:.3e} of max|pred|; the first fit "
+        f"left {rd['first']['allocated_bytes_after']} B allocated (its plan)")
     log(f"LM (Jamba, {dvf['n_layers']} layers at full width): decode vs forward "
         f"{dvf['delta_over_max']:.3e} of max|logit| in fp32; prefill "
         f"{srv['prefill_tokens_per_s']:.1f} tokens/s ({srv['batch']} x {srv['prompt']}, bf16), "

@@ -47,8 +47,11 @@ class FitConfig:
       lam: the solver's ridge regularization (the paper's lambda).
       iters: CG iteration count (FALKON only).
       backend: kernel-operator backend — instance, registry name ("torch" |
-        "cuda"), or None for the device's backend (CUDA kernels on "cuda",
-        the plain torch streamer on "cpu").
+        "cuda" | "sharded" | "guarded" | ...), or None for the device's
+        backend (CUDA kernels on "cuda", the plain torch streamer on "cpu").
+        On a graph-safe backend (``TorchBackend``) the fit takes the fused
+        path (``falkon_fit(fused=None)``): refits and sweep columns in one
+        shape bucket reuse one plan.
       seed: sampler seed when ``fit`` is not given one.
       check_finite: arm the finite-output fence on FALKON fits (one host
         sync per fit; the direct solvers are always fenced).
@@ -80,12 +83,16 @@ class _KrrEstimator:
         return require_cuda_device(self.config.device)
 
     def _backend(self, x=None) -> Backend:
-        """The configured backend, else the device's; a ``ChunkStore`` input
-        streams through ``StreamBackend`` around the device's backend."""
+        """The configured backend, else the device's (on each rank's rows,
+        ``ShardedBackend``, in a process group of more than one rank from
+        ``SHARD_MIN_ROWS`` rows); a ``ChunkStore`` input streams through
+        ``StreamBackend`` around the device's backend."""
         if self.config.backend is not None:
             return resolve_backend(self.config.backend)
-        be = backend_for_device(self._device())
-        return StreamBackend(inner=be) if isinstance(x, ChunkStore) else be
+        if isinstance(x, ChunkStore):
+            return StreamBackend(inner=backend_for_device(self._device()))
+        return backend_for_device(self._device(),
+                                  n=x.shape[0] if isinstance(x, Tensor) else None)
 
     def _as_data(self, a) -> Tensor | ChunkStore:
         """A tensor on the configured device; a host-resident ``ChunkStore``

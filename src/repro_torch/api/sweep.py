@@ -16,6 +16,8 @@ the row-masked kernel K7, so held-out rows add nothing to fold f's
 operator. The shared preconditioner keeps the global n while a refit
 builds its own with n_f, so the two agree at convergence, not iterate by
 iterate: compare a sweep with naive refits at converged iteration counts.
+The sweep leaves ``fused`` to ``falkon_fit``: on a graph-safe backend
+(``TorchBackend``) every λ after the first reuses the bucket's fused plan.
 """
 from __future__ import annotations
 

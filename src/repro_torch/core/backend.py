@@ -14,7 +14,7 @@ Two backends serve them:
   * ``TorchBackend`` — the pure-torch row streamer, counterpart of
     ``JnpBackend``. Complete (every method, ``mask=`` included) and runs on
     whatever device its tensors are on. It is the port's own oracle and
-    what ``FitConfig(device="cpu")`` runs.
+    what ``FitConfig(device="cpu")`` runs; the one graph-safe backend.
   * ``CudaBackend``  — the hand-written CUDA kernels, counterpart of
     ``PallasBackend``: ``gram_block`` is K1, ``knm_quadratic`` K2 (with a
     ``mask=`` panel the row-masked K7), ``knm_t`` K3 (a mask folds into the
@@ -22,17 +22,29 @@ Two backends serve them:
     K5 (up to ``MAX_FUSED_M`` centers) and ``masked_quadform`` K1 + the
     quadratic form K6.
 
+Two wrap another backend:
+
+  * ``ShardedBackend`` — data-parallel over a ``torch.distributed`` group
+    (``repro_torch.core.distributed``): each rank's rows through its inner
+    backend, partials summed in rank order.
+  * ``GuardedBackend`` — a primary with a per-dispatch fallback for data
+    on the CPU (on the card a failure is recorded and re-raised), opt-in
+    only: no default picks it.
+
 Backends are frozen dataclasses: hashable and comparable by configuration.
-Selection is by instance, by registry name ("torch" | "cuda" | "stream",
-or a composite "stream:<inner>"), or None for ``default_backend(device)``,
-which picks ``CudaBackend`` for data on a CUDA device (the out-of-core
-``StreamBackend`` around it past ``REPRO_STREAM_MIN_ROWS`` rows) and raises
-for data elsewhere: the CPU path is taken only when the caller names it.
+Selection is by instance, by registry name ("torch" | "cuda" | "sharded" |
+"guarded" | "stream", or a composite "stream:<inner>"), or None for
+``default_backend(device)``, which picks ``CudaBackend`` for data on a CUDA
+device (``ShardedBackend`` in a multi-rank group past ``SHARD_MIN_ROWS``
+rows, the out-of-core ``StreamBackend`` around the pick past
+``REPRO_STREAM_MIN_ROWS``) and raises for data elsewhere: the CPU path is
+taken only when the caller names it.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Callable, ClassVar
 
 import torch
@@ -41,6 +53,7 @@ from ..kernels.falkon_matvec import ops as falkon_ops
 from ..kernels.gram import ops as gram_ops
 from ..kernels.quadform import ops as quadform_ops
 from ..kernels.rls_score import ops as rls_ops
+from . import health
 from .gram import Kernel, blocked_cross, register_backend
 from .leverage import _chol_with_jitter
 
@@ -65,6 +78,11 @@ class Backend:
     """Abstract kernel-operator backend (see module docstring)."""
 
     name: ClassVar[str] = "abstract"
+    #: True if every method is plain torch that a CUDA graph can capture
+    #: (no host sync, no host-side branch on a tensor's value): the
+    #: counterpart of the reference's ``jit_safe``. ``falkon_fit`` takes
+    #: its fused, graph-captured solve only on such a backend.
+    graph_safe: ClassVar[bool] = False
 
     def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
         """K(X, Z) of shape (n, m)."""
@@ -128,6 +146,7 @@ class TorchBackend(Backend):
     """Pure-torch row-streaming backend (the port's numerical reference)."""
 
     name: ClassVar[str] = "torch"
+    graph_safe: ClassVar[bool] = True
     block: int = STREAM_BLOCK  # rows per streamed Gram block
 
     def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
@@ -262,6 +281,200 @@ class CudaBackend(Backend):
 
 
 # ---------------------------------------------------------------------------
+# Data-parallel backend over a torch.distributed group
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBackend(Backend):
+    """Data-parallel over a ``torch.distributed`` group; counterpart of the
+    reference's shard_map ``ShardedBackend``.
+
+    Every rank is called with the whole X; each keeps its rows
+    (``distributed.shard_rows``) and contracts them with ``inner`` (None:
+    ``backend_for_device`` of the data, so the CUDA kernels on the card);
+    (M, .) partials are summed in rank order, row-parallel outputs gathered.
+    Every method first checks that the ranks hold the same data
+    (``distributed.check_replicated``: ``ValueError`` if they do not).
+    ``group`` None is the default group, or a world of one without one.
+    ``rls_scores`` is the base composition over the sharded
+    ``masked_quadform``, as in the reference. ``collectives`` counts the
+    collectives issued, over every instance.
+    """
+
+    name: ClassVar[str] = "sharded"
+    collectives: ClassVar[int] = 0
+    group: torch.distributed.ProcessGroup | None = None
+    inner: Backend | None = None
+
+    def _group(self):
+        from .distributed import data_group
+
+        return self.group if self.group is not None else data_group()
+
+    def _inner(self, x: Tensor) -> Backend:
+        return self.inner if self.inner is not None else backend_for_device(x.device)
+
+    def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
+        """K(X, Z) with X's rows sharded, Z replicated; gathered to (n, m)."""
+        from .distributed import check_replicated, gather_rows, shard_rows
+
+        g = self._group()
+        check_replicated(g, x, z)
+        return gather_rows(g, self._inner(x).gram_block(kernel, shard_rows(g, x), z),
+                           x.shape[0])
+
+    def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                        mask: Tensor, reg: Tensor) -> Tensor:
+        """Eq. 3 quadratic form: candidates sharded, the (Mbuf, Mbuf) factor
+        replicated (each rank's inner backend factors it; <= d_eff^2)."""
+        from .distributed import check_replicated, gather_rows, shard_rows
+
+        g = self._group()
+        check_replicated(g, x_cand, z, mask, reg)
+        local = self._inner(x_cand).masked_quadform(kernel, shard_rows(g, x_cand), z, mask, reg)
+        return gather_rows(g, local, x_cand.shape[0])
+
+    def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
+                      mask: Tensor | None = None) -> KnmQuadraticOp:
+        """CG quadratic op with X (and a ``mask`` panel) row-sharded and the
+        (M,) / (M, k) partials summed in rank order."""
+        from .distributed import check_replicated, dist_knm_quadratic, shard_rows
+
+        g = self._group()
+        check_replicated(g, x, z, mask)
+        ms = None if mask is None else shard_rows(g, mask)
+        return dist_knm_quadratic(g, kernel, shard_rows(g, x), z, x.shape[0], mask=ms,
+                                  inner=self._inner(x))
+
+    def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+              mask: Tensor | None = None) -> Tensor:
+        """K_nM^T y with X, y row-sharded; ``mask`` folds into the targets."""
+        from .distributed import check_replicated, dist_knm_t, shard_rows
+
+        g = self._group()
+        check_replicated(g, x, z, y, mask)
+        if mask is not None:
+            y = y * mask.to(y.dtype)
+        return dist_knm_t(g, kernel, shard_rows(g, x), shard_rows(g, y), z, x.shape[0],
+                          inner=self._inner(x))
+
+    def knm_operators(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+                      mask: Tensor | None = None) -> tuple[KnmQuadraticOp, Tensor]:
+        """(quadratic op, K_nM^T y), X sliced to this rank's rows once."""
+        from .distributed import check_replicated, dist_knm_quadratic, dist_knm_t, shard_rows
+
+        g = self._group()
+        check_replicated(g, x, z, y, mask)
+        xs, inner, n = shard_rows(g, x), self._inner(x), x.shape[0]
+        ym = y if mask is None else y * mask.to(y.dtype)
+        ms = None if mask is None else shard_rows(g, mask)
+        return (dist_knm_quadratic(g, kernel, xs, z, n, mask=ms, inner=inner),
+                dist_knm_t(g, kernel, xs, shard_rows(g, ym), z, n, inner=inner))
+
+    def knm_matvec(self, kernel: Kernel, x: Tensor, z: Tensor, v: Tensor) -> Tensor:
+        """K(X, Z) v, row-parallel, gathered; (M,) or (M, k) ``v``."""
+        from .distributed import check_replicated, dist_knm_matvec, shard_rows
+
+        g = self._group()
+        check_replicated(g, x, z, v)
+        return dist_knm_matvec(g, kernel, shard_rows(g, x), z, v, x.shape[0],
+                               inner=self._inner(x))
+
+
+# ---------------------------------------------------------------------------
+# Opt-in guarded backend
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardedBackend(Backend):
+    """A primary backend with a per-dispatch fallback; counterpart of the
+    reference's ``GuardedBackend``. Opt-in only: no default picks it.
+
+    Every seam method tries ``primary`` (default the CUDA kernels); an
+    exception is recorded as a ``backend_fallback`` health event. For data
+    on the CPU the call is then served by ``fallback`` (default
+    ``TorchBackend``) with a warning. For data on a CUDA device nothing
+    falls back: the event names no fallback and the primary's exception is
+    re-raised, since the port never serves the card's tensors with a plain
+    version. ``knm_quadratic`` guards building the op and every call of it.
+    Not graph-safe: the try/except needs the host.
+    """
+
+    name: ClassVar[str] = "guarded"
+    primary: Backend = dataclasses.field(default_factory=lambda: CudaBackend())
+    fallback: Backend = dataclasses.field(default_factory=lambda: TorchBackend())
+
+    def _refused(self, method: str, e: Exception, args: tuple) -> bool:
+        """Record the primary's failure; True if the data is on a CUDA
+        device (the caller re-raises), else warn that the fallback serves."""
+        on_card = any(isinstance(a, Tensor) and a.is_cuda for a in args)
+        health.record_event("backend_fallback", method=method, primary=self.primary.name,
+                            fallback=None if on_card else self.fallback.name, error=repr(e))
+        if not on_card:
+            warnings.warn(f"{self.primary.name}.{method} dispatch failed ({e!r}); "
+                          f"falling back to {self.fallback.name}", RuntimeWarning, stacklevel=4)
+        return on_card
+
+    def _guard(self, method: str, *args):
+        try:
+            return getattr(self.primary, method)(*args)
+        except Exception as e:  # noqa: BLE001 — any dispatch failure falls back
+            if self._refused(method, e, args):
+                raise
+            return getattr(self.fallback, method)(*args)
+
+    def gram_block(self, kernel: Kernel, x: Tensor, z: Tensor) -> Tensor:
+        """K(X, Z) via the primary, re-served by the fallback on failure."""
+        return self._guard("gram_block", kernel, x, z)
+
+    def masked_quadform(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                        mask: Tensor, reg: Tensor) -> Tensor:
+        """Eq. 3 quadratic form with per-dispatch fallback."""
+        return self._guard("masked_quadform", kernel, x_cand, z, mask, reg)
+
+    def rls_scores(self, kernel: Kernel, x_cand: Tensor, z: Tensor,
+                   z_mask: Tensor, reg: Tensor, lamn: Tensor | float) -> Tensor:
+        """Eq. 3 scores with per-dispatch fallback."""
+        return self._guard("rls_scores", kernel, x_cand, z, z_mask, reg, lamn)
+
+    def knm_quadratic(self, kernel: Kernel, x: Tensor, z: Tensor, *,
+                      mask: Tensor | None = None) -> KnmQuadraticOp:
+        """CG quadratic op; building it and every call of it are guarded."""
+        try:
+            op = self.primary.knm_quadratic(kernel, x, z, mask=mask)
+        except Exception as e:  # noqa: BLE001
+            if self._refused("knm_quadratic", e, (x, z, mask)):
+                raise
+            return self.fallback.knm_quadratic(kernel, x, z, mask=mask)
+        fb: list[KnmQuadraticOp | None] = [None]
+
+        def guarded_op(v: Tensor) -> Tensor:
+            try:
+                return op(v)
+            except Exception as e:  # noqa: BLE001
+                if self._refused("knm_quadratic", e, (x, z, mask, v)):
+                    raise
+                if fb[0] is None:
+                    fb[0] = self.fallback.knm_quadratic(kernel, x, z, mask=mask)
+                return fb[0](v)
+
+        return guarded_op
+
+    def knm_t(self, kernel: Kernel, x: Tensor, z: Tensor, y: Tensor, *,
+              mask: Tensor | None = None) -> Tensor:
+        """K_nM^T y with per-dispatch fallback; ``mask`` folds into y."""
+        if mask is not None:
+            y = y * mask.to(y.dtype)
+        return self._guard("knm_t", kernel, x, z, y)
+
+    def knm_matvec(self, kernel: Kernel, x: Tensor, z: Tensor, v: Tensor) -> Tensor:
+        """K(X, Z) v with per-dispatch fallback."""
+        return self._guard("knm_matvec", kernel, x, z, v)
+
+
+# ---------------------------------------------------------------------------
 # Selection
 # ---------------------------------------------------------------------------
 
@@ -283,11 +496,22 @@ def require_cuda_device(device: torch.device | str = "cuda") -> torch.device:
 #: only for parity with the reference's documented knob (same name, same
 #: default); nothing in the port sets it.
 STREAM_MIN_ROWS = 1 << 21
+#: rows from which a process group of more than one rank shards the data,
+#: as the reference's ``_SHARD_MIN_ROWS``.
+SHARD_MIN_ROWS = 1 << 15
 
 
 def _stream_min_rows() -> int:
     env = os.environ.get("REPRO_STREAM_MIN_ROWS", "").strip()
     return int(env) if env else STREAM_MIN_ROWS
+
+
+def _sharded(n: int | None) -> bool:
+    """An initialized process group of more than one rank, and n rows
+    enough to amortize its collectives."""
+    from .distributed import data_group, world
+
+    return n is not None and n >= SHARD_MIN_ROWS and world(data_group())[1] > 1
 
 
 def default_backend(device: torch.device | str | None = None, *,
@@ -297,28 +521,34 @@ def default_backend(device: torch.device | str | None = None, *,
     ``device`` is where the data lives (None means the default, the card).
     Data on the CPU runs only when the caller names the CPU path
     (``TorchBackend`` / ``backend="torch"`` / ``FitConfig(device="cpu")``).
-    ``n`` is the dataset's row count when the caller knows it: at
-    ``REPRO_STREAM_MIN_ROWS`` rows and above the pick is wrapped in the
-    out-of-core ``StreamBackend`` (K1 keeps building each tile, X streams
-    chunk by chunk).
+    ``n`` is the dataset's row count when the caller knows it: in a process
+    group of more than one rank, from ``SHARD_MIN_ROWS`` rows the pick is
+    ``ShardedBackend()`` (the CUDA kernels on each rank's rows); at
+    ``REPRO_STREAM_MIN_ROWS`` rows and above it is wrapped in the
+    out-of-core ``StreamBackend`` (its inner backend keeps building each
+    tile, X streams chunk by chunk).
     """
     device = require_cuda_device("cuda" if device is None else device)
     if device.type != "cuda":
         raise RuntimeError(
             f"no backend is chosen by default for data on {device}; pass "
             "backend='torch' (or FitConfig(device='cpu')) to run on the CPU")
+    picked: Backend = ShardedBackend() if _sharded(n) else CudaBackend()
     if n is not None and n >= _stream_min_rows():
         from ..stream import StreamBackend
 
-        return StreamBackend(inner=CudaBackend())
-    return CudaBackend()
+        return StreamBackend(inner=picked)
+    return picked
 
 
-def backend_for_device(device: torch.device | str) -> Backend:
+def backend_for_device(device: torch.device | str, *, n: int | None = None) -> Backend:
     """The backend an entry point runs on ``device``: ``CudaBackend`` on a
-    CUDA device (raising if none is present), ``TorchBackend`` on the CPU."""
+    CUDA device (raising if none is present), ``TorchBackend`` on the CPU;
+    with ``n`` rows in a process group of more than one rank (from
+    ``SHARD_MIN_ROWS``), that backend on each rank's rows (``ShardedBackend``)."""
     device = require_cuda_device(device)
-    return CudaBackend() if device.type == "cuda" else TorchBackend()
+    be = CudaBackend() if device.type == "cuda" else TorchBackend()
+    return ShardedBackend(inner=be) if _sharded(n) else be
 
 
 def _stream_backend() -> Backend:
@@ -331,4 +561,6 @@ def _stream_backend() -> Backend:
 
 register_backend("torch", TorchBackend)
 register_backend("cuda", CudaBackend)
+register_backend("sharded", ShardedBackend)
+register_backend("guarded", GuardedBackend)
 register_backend("stream", _stream_backend)

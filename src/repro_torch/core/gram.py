@@ -52,9 +52,7 @@ class Kernel:
     def cross(self, x: Tensor, z: Tensor) -> Tensor:
         """Gram block ``k(x_i, z_j)`` of shape (n, m)."""
         fam = self.family
-        if fam.dot_only:
-            return fam.epilogue(x @ z.T, fam.inv_scale(self.sigma))
-        return fam.epilogue(sq_dists(x, z), fam.inv_scale(self.sigma))
+        return family_cross(fam, x, z, fam.inv_scale(self.sigma))
 
     #: The reference keeps a second entry that dodges an XLA:CPU fusion
     #: problem; torch has none, so it is the same function.
@@ -77,6 +75,15 @@ def sq_dists(x: Tensor, z: Tensor) -> Tensor:
     xn = torch.sum(x * x, dim=-1)[:, None]
     zn = torch.sum(z * z, dim=-1)[None, :]
     return torch.clamp(xn + zn - 2.0 * (x @ z.T), min=0.0)
+
+
+def family_cross(fam: KernelFamily, x: Tensor, z: Tensor, inv: float | Tensor) -> Tensor:
+    """``fam``'s Gram block with the bandwidth already folded into ``inv``
+    (``fam.inv_scale(sigma)``), a float or a 0-d tensor: the fused fit passes
+    a tensor so that a captured graph reads a new bandwidth from its buffer."""
+    if fam.dot_only:
+        return fam.epilogue(x @ z.T, inv)
+    return fam.epilogue(sq_dists(x, z), inv)
 
 
 def make_kernel(name: str = "gaussian", sigma: float = 1.0, kappa_sq: float = 1.0) -> Kernel:

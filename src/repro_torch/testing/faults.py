@@ -201,6 +201,9 @@ class FaultyBackend:
     """
 
     name = "faulty"
+    #: its hooks run on the host at every dispatch, so a fused fit, which
+    #: dispatches nothing, would pass them by
+    graph_safe = False
 
     def __init__(self, inner):
         self.inner = inner

@@ -234,7 +234,7 @@ def test_exact_rls_and_effective_dim_match_reference():
 
 
 def test_backend_registry_and_resolution():
-    assert core.backend_names() == ["cuda", "stream", "torch"]
+    assert core.backend_names() == ["cuda", "guarded", "sharded", "stream", "torch"]
     assert isinstance(core.resolve_backend("torch"), TorchBackend)
     assert isinstance(core.resolve_backend("cuda"), CudaBackend)
     inst = TorchBackend(block=64)

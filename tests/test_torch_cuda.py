@@ -749,3 +749,105 @@ def test_durable_resume_is_bit_identical_on_the_card(dev, tmp_path):
             resumable_streamed_fit(kern, store, ckpt_dir=str(tmp_path / "killed"), **kw)
     resumed = resumable_streamed_fit(kern, store, ckpt_dir=str(tmp_path / "killed"), **kw)
     assert torch.equal(resumed.alpha, whole.alpha) and resumed.alpha.device.type == "cuda"
+
+
+def test_fused_plan_captures_once_per_bucket_and_replays_its_eager_body(dev):
+    from repro_torch.core import falkon as fm
+
+    x, _, _, _ = _inputs(dev, 20_000, 64, 6, 1)
+    y = torch.sin(2 * x[:, 0])
+    kern = core.make_kernel("gaussian", sigma=1.5)
+    t0 = fm._FUSED_FIT_TRACES
+    first = core.falkon_fit(kern, x, y, x[:64], 1e-3, iters=17, backend="torch")
+    assert fm._FUSED_FIT_TRACES == t0 + 1
+    kept = first.alpha.clone()
+    # a new n in the bucket, a new lam and a new bandwidth: no new capture,
+    # and each takes effect: refereed by an fp64 host-loop fit on the same
+    # inputs, the fused fit no farther from it than the fp32 host loop, plus
+    # 1e-3 of max|pred| (both fp32 paths converge to fp32 noise, where they
+    # part by ~1e-3)
+    xs = x[:4096]
+    for k2, n, lam in ((kern, 19_000, 1e-3), (kern, 20_000, 1e-4),
+                       (core.make_kernel("gaussian", sigma=2.5), 20_000, 1e-3)):
+        fused = core.falkon_fit(k2, x[:n], y[:n], x[:64], lam, iters=17, backend="torch")
+        host = core.falkon_fit(k2, x[:n], y[:n], x[:64], lam, iters=17, backend="torch",
+                               fused=False)
+        ref = core.falkon_fit(k2, x[:n].double(), y[:n].double(), x[:64].double(), lam,
+                              iters=17, backend="torch", fused=False).predict(xs.double())
+
+        def dist(m):
+            return float((m.predict(xs).double() - ref).abs().max()) / float(ref.abs().max())
+
+        assert dist(fused) <= dist(host) + 1e-3, (dist(fused), dist(host))
+    assert fm._FUSED_FIT_TRACES == t0 + 1 and torch.equal(first.alpha, kept)
+    plan = [p for k, p in fm._FUSED_PLANS.items() if k[4] == 17 and k[8] == x.device][0]
+    replay = plan.run()[0].clone()
+    eager = plan.eager()[0]
+    assert float((replay - eager).abs().max()) <= 1e-6 * float(eager.abs().max())
+    with pytest.raises(ValueError, match="graph-safe"):
+        core.falkon_fit(kern, x, y, x[:64], 1e-3, backend=core.CudaBackend(), fused=True)
+
+
+def test_sharded_world_of_one_on_nccl_is_the_cuda_backend_bitwise(dev, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.core.backend import ShardedBackend
+
+    x, _, _, _ = _inputs(dev, 50_000, 300, 18, 1)
+    y = torch.sin(2 * x[:, 0])
+    kern = core.make_kernel("gaussian", sigma=4.0)
+    want = core.falkon_fit(kern, x, y, x[:300], 1e-5, iters=15, backend="cuda")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv", rank=0, world_size=1)
+    try:
+        kernels.reset_launch_counts()
+        before = ShardedBackend.collectives
+        got = core.falkon_fit(kern, x, y, x[:300], 1e-5, iters=15, backend=ShardedBackend())
+        launches = kernels.launch_counts()
+        assert ShardedBackend.collectives > before
+        assert isinstance(core.default_backend(n=1 << 20), core.CudaBackend)  # one rank
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got.alpha, want.alpha)
+    assert launches["falkon_matvec"] == 15 and launches["knm_t"] == 1
+
+
+def test_guarded_happy_path_is_the_cuda_backend(dev):
+    from repro_torch.core import health
+    from repro_torch.core.backend import GuardedBackend
+
+    x, _, _, _ = _inputs(dev, 30_000, 200, 18, 1)
+    y = torch.sin(2 * x[:, 0])
+    kern = core.make_kernel("gaussian", sigma=4.0)
+    health.clear_events()
+    counts = []
+    fits = []
+    for be in (core.CudaBackend(), GuardedBackend()):
+        kernels.reset_launch_counts()
+        fits.append(core.falkon_fit(kern, x, y, x[:200], 1e-5, iters=12, backend=be))
+        counts.append(kernels.launch_counts())
+    assert torch.equal(fits[0].alpha, fits[1].alpha)
+    assert counts[0] == counts[1] and counts[1]["falkon_matvec"] == 12
+    assert health.events("backend_fallback") == []
+
+
+def test_guarded_refuses_the_plain_fallback_on_the_card(dev):
+    # a primary that dies on the card: the failure is recorded and re-raised,
+    # and no plain version serves the card's tensors
+    from repro_torch.core import health
+    from repro_torch.core.backend import GuardedBackend
+    from repro_torch.testing import faults
+
+    x, _, _, _ = _inputs(dev, 20_000, 100, 8, 1)
+    y = torch.sin(2 * x[:, 0])
+    kern = core.make_kernel("gaussian", sigma=2.0)
+    health.clear_events()
+    gb = GuardedBackend(primary=faults.FaultyBackend(core.CudaBackend()))
+    kernels.reset_launch_counts()
+    with faults.fault("backend.error", skip=4, times=1) as f:  # the 3rd quadratic-op call
+        with pytest.raises(faults.FaultInjected):
+            core.falkon_fit(kern, x, y, x[:100], 1e-4, iters=8, backend=gb)
+    events = health.events("backend_fallback")
+    assert f.fired == 1 and [(e["method"], e["fallback"]) for e in events] == [
+        ("knm_quadratic", None)]
+    assert kernels.launch_counts()["falkon_matvec"] == 2
+    health.clear_events()
