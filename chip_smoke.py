@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
-KRR serving, streaming, online, sharded, guarded and fused paths and its Jamba
-serving path on one H100.
+KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
+serving path, BLESS-Nystrom attention in gemma-2b, and LM training (gemma-2b,
+mamba2-370m) on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
 
@@ -147,10 +148,17 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 groups 1, 4 and 8, S in {1, 1 000, 2 053}, D in {17, 32, 80,
                 128} (D = 17 and S = 1 run the tensor-core kernel's padding),
                 and Jamba's layer (B = 4, Hq = 32, Hkv = 8, S = 2 048,
-                D = 128); K9 at S not a multiple of the chunk, at S = 4 100
+                D = 128); the wide tiles: D = 256 causal and bidirectional at
+                S in {1, 1 000, 2 053}, gemma-2b's layer (B = 2, Hq = 8,
+                Hkv = 1, S = 2 048, D = 256) and the ragged D = 129 and 200;
+                K9 at S not a multiple of the chunk, at S = 4 100
                 (the state carried over 65 chunks, H = 12 not a multiple of
-                the 8-head scan group) and Jamba's layer (B = 4, S = 2 048,
-                H = 128, P = 64, N = 16), y and the final state.
+                the 8-head scan group), Jamba's layer (B = 4, S = 2 048,
+                H = 128, P = 64, N = 16) and mamba2-370m's (B = 4, S = 2 048,
+                H = 32, P = 64, N = 128), y and the final state. Then K8 at
+                gemma-2b's layer and K9 at mamba2-370m's, bf16 and fp32:
+                parity and times beside the bound, the plain version and (K8)
+                scaled_dot_product_attention.
  10. decode     jamba-v0.1-52b at full width cut to 8 layers (one period
                 group: the 32 layers' 104 GB in bf16 exceed the card), fp32,
                 capacity_factor 16 (no drops), random weights from --seed:
@@ -170,6 +178,34 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 default chunk (128) beside the model's (64), each beside the
                 one-pass bound and its design's bound (the chunk states it
                 writes and reads, the second read of x, B and dt).
+ 14. nystrom    gemma-2b at full width and depth (18 layers, bf16, random
+                weights from --seed) with attention_impl="bless_nystrom" and
+                1 024 landmarks: (a) prefill_logits on one 8 192-token
+                prompt, timed warm, beside the same model with exact
+                attention (K8 at D = 256); counts reset before each. (b) The
+                first layer's q, k, v at that prompt in fp32: nystrom_attention
+                on the card against the CPU, landmark sets equal per (b, kv
+                head) but for ties at the selection's edge (scores within the
+                RLS tolerance of the m-th), outputs within 1e-3 of max|out|;
+                its error against exact attention logged. (c)
+                bless_compress_cache of that layer's k, v to 1 024 rows: the
+                CPU's selection; its time logged.
+ 15. train      repro_torch.training on SyntheticLM batches, AdamW (cosine,
+                one warmup step, clip 1.0), counts reset before each
+                step. (a) gemma-2b, full width and depth, bf16, remat, 6
+                steps of 2 x 2 048 tokens (8 loss chunks), peak lr 5e-4;
+                (d) the state saved with repro_torch.checkpoint, a 7th step at
+                microbatches = 2, the checkpoint restored into the state and
+                the 7th step again: the same loss bits. (b) mamba2-370m, full
+                width and depth (48 layers, N = 128), 6 steps of 4 x 2 048
+                tokens, peak lr 1e-3. Gates: finite loss and grad_norm at
+                every step, the 6th step's loss below the 1st's, K8 (K9)
+                launched twice per
+                attention (Mamba) layer and step (remat), every plain call on
+                the card a backward recompute. (c) One fp32 loss and gradient
+                of each, cut to 2 layers, B = 1, S = 256, on the card against
+                the CPU: loss within 1e-4 relative, each gradient within
+                1e-3 of its max|g|.
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -178,7 +214,9 @@ max (beyond the fp32 TorchBackend's own distance from the fp64 referee);
 K8 2e-5 (bf16 2e-2) and K9 2e-4 (bf16 3e-2) * max|ref| (tests/test_kernels.py),
 and K8 also per query row: max|out_row - ref_row| <= the same factor *
 max|ref_row| (a causal row over many keys has outputs far below row 0's);
-decode against forward 5e-3 * max|logit| (tests/test_models.py).
+decode against forward 5e-3 * max|logit| (tests/test_models.py); Nystrom
+attention card against CPU 1e-3 * max|out|; a training step's loss card
+against CPU 1e-4 relative, each gradient 1e-3 * its max|g|.
 Any failed phase exits non-zero. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -2038,13 +2076,23 @@ def core_rest(device, t: dict, bless_t: dict, referee: dict, bless_test_error: f
 #: and Jamba's attention layer at 4 prompts of 2 048 tokens.
 ATTN_CASES = [(1, 8, 8, 1000, 32, True), (1, 8, 2, 2053, 80, True), (1, 8, 1, 1000, 128, False),
               (2, 4, 1, 2053, 32, False), (4, 32, 8, 2048, 128, True), (1, 8, 2, 1000, 17, True),
-              (2, 8, 8, 1, 128, True)]
+              (2, 8, 8, 1, 128, True),
+              # the 192- and 256-wide tiles: D = 256 causal and bidirectional at S of
+              # one row, a ragged tile and many, gemma-2b's layer (B = 2, Hq = 8,
+              # Hkv = 1, S = 2 048), and the ragged D = 129 and 200
+              (1, 8, 1, 1, 256, True), (1, 8, 1, 1000, 256, True), (1, 8, 2, 2053, 256, True),
+              (1, 8, 1, 1, 256, False), (1, 8, 2, 1000, 256, False), (1, 8, 1, 2053, 256, False),
+              (2, 8, 1, 2048, 256, True), (1, 8, 2, 1000, 129, True), (1, 8, 1, 2053, 200, False)]
 #: K9 parity cases (B, S, H, P, N, chunk): S not a multiple of the chunk, a
 #: state carried over 65 chunks with H not a multiple of the 8-head scan
-#: group, and Jamba's Mamba layer at 4 prompts of 2 048 tokens with the
-#: model's chunk.
+#: group, Jamba's Mamba layer at 4 prompts of 2 048 tokens with the model's
+#: chunk, and mamba2-370m's (N = 128) at 4 sequences of 2 048 tokens.
 SSD_CASES = [(1, 1000, 3, 64, 16, 64), (2, 2053, 4, 32, 8, 128), (1, 4100, 12, 64, 16, 64),
-             (4, 2048, 128, 64, 16, 64)]
+             (4, 2048, 128, 64, 16, 64), (4, 2048, 32, 64, 128, 64)]
+#: K8 at gemma-2b's attention layer (B, Hq, Hkv, S, D) and K9 at mamba2-370m's
+#: Mamba layer (B, S, H, P, N): phase 15's shapes, timed in phase 9.
+GEMMA_ATTN = (2, 8, 1, 2048, 256)
+MAMBA_SSD = (4, 2048, 32, 64, 128)
 
 
 def lm_config(*, n_layers: int = 8, **overrides):
@@ -2415,6 +2463,393 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
     return out
 
 
+def wide_kernel_times(device, *, attn_shape=GEMMA_ATTN, ssd_shape=MAMBA_SSD, seed: int = 0,
+                      timed: bool = True) -> dict:
+    """Phase 9's times at this slice's shapes: K8 at gemma-2b's attention
+    layer (``GEMMA_ATTN``) and K9 at mamba2-370m's Mamba layer
+    (``MAMBA_SSD``, the model's chunk; N = 128 leaves no room for chunk 128),
+    in bf16 (the models' dtype) and fp32 (phase 15 (c)'s): parity with the
+    plain version and CUDA-event times of kernel, plain version and (K8)
+    SDPA beside the bound."""
+    from repro_torch.models import mamba2
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        got = lm_kernel_times(device, attn_shape, ssd_shape, mamba2.CHUNK, dtype, seed=seed,
+                              timed=timed, default_chunk=mamba2.CHUNK)
+        tag = "" if dtype == torch.bfloat16 else "@fp32"
+        out[f"flash_attention@gemma{tag}"] = got["flash_attention"]
+        out[f"ssd@mamba{tag}"] = got["ssd"]
+    return out
+
+
+#: phase 14: gemma-2b at full width and depth through BLESS-Nystrom attention.
+NYSTROM_ARCH = "gemma-2b"
+NYSTROM_LANDMARKS = 1024
+NYSTROM_TOL = 1e-3
+
+
+def nystrom_config(**overrides):
+    """gemma-2b at full width and full depth (18 layers, bf16) with
+    BLESS-Nystrom attention past ``NYSTROM_LANDMARKS`` positions."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(NYSTROM_ARCH), attention_impl="bless_nystrom",
+                               nystrom_landmarks=NYSTROM_LANDMARKS, **overrides)
+
+
+def _same_selection(idx: torch.Tensor, ref_idx: torch.Tensor, ref_scores: torch.Tensor) -> dict:
+    """Compare two top-m selections per leading index (b, kv head): each
+    (..., m) index set against ``ref_idx`` with the reference's scores
+    (..., S). Indices in one set and not the other are excepted only where
+    their reference score ties the m-th largest one within the RLS
+    tolerance (a tie at the selection's edge, the clip among them)."""
+    idx, ref_idx, ref_scores = idx.cpu(), ref_idx.cpu(), ref_scores.cpu()
+    m = idx.shape[-1]
+    edge = torch.sort(ref_scores, dim=-1, descending=True).values[..., m - 1]
+    differ, untied = 0, 0
+    for j in range(idx.reshape(-1, m).shape[0]):
+        a, b = set(idx.reshape(-1, m)[j].tolist()), set(ref_idx.reshape(-1, m)[j].tolist())
+        sc, e = ref_scores.reshape(-1, ref_scores.shape[-1])[j], float(edge.reshape(-1)[j])
+        diff = sorted(a ^ b)
+        differ += len(diff)
+        untied += sum(abs(float(sc[i]) - e) > SCORE_ATOL + SCORE_RTOL * abs(e) for i in diff)
+    return {"differ": differ, "untied": untied}
+
+
+def nystrom(device, cfg=None, *, prompt: int = 8192, repeats: int = 2, seed: int = 0) -> dict:
+    """Phase 14. (a) ``prefill_logits`` of ``cfg`` (gemma-2b, BLESS-Nystrom
+    attention, 1 024 landmarks) on one ``prompt``-token prompt, timed warm,
+    beside the same model with exact attention (K8 at D = 256); counts reset
+    before each and read after. (b) The first attention layer's q, k, v at
+    that prompt, in fp32: ``nystrom_attention`` on ``device`` against the
+    same function on the CPU (landmark sets equal per (b, kv head) but for
+    ties at the edge, outputs within 1e-3 of max|out|), and its error
+    against exact bidirectional attention logged. (c) ``bless_compress_cache``
+    of that layer's k and v down to the landmark count: the kept rows the
+    CPU's selection as sets; its time logged. Gates: finite logits, K8
+    launched in every layer of the exact prefill and in none of the Nystrom
+    one, no plain K8 on the card."""
+    from repro_torch import kernels
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serving import prefill_logits
+
+    cfg = cfg or nystrom_config()
+    on_card = torch.device(device).type == "cuda"
+    m = cfg.nystrom_landmarks
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g, device=device)
+
+    def timed_prefill(lm):
+        logits = prefill_logits(lm, {"tokens": tokens})  # warm-up
+        sync(device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            logits = prefill_logits(lm, {"tokens": tokens})
+        sync(device)
+        return (logits, (time.perf_counter() - t0) / repeats, kernels.launch_counts(),
+                kernels.plain_counts())
+
+    lm = LM(cfg, seed=seed, device=str(device))
+    logits, nys_s, nys_launches, nys_plain = timed_prefill(lm)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "prompt": prompt,
+           "landmarks": m, "nystrom_prefill_s": nys_s,
+           "nystrom_logits_finite": bool(torch.all(torch.isfinite(logits.float()))),
+           "nystrom_launches": {n: nys_launches[n] for n in LM_KERNELS}}
+    # (b) the first attention layer's q, k, v
+    li = next(i for i in range(cfg.n_layers) if cfg.mixer_kind(i) == "attn")
+    with torch.no_grad():
+        x = lm._embed_in({"tokens": tokens})
+        h = rms_norm(x, lm.layers[li].ln_mix, cfg.norm_eps)
+        positions = torch.arange(prompt, device=device).expand(1, prompt)
+        q16, k16, v16 = lm.layers[li].attn._qkv(h, positions, None)
+    del lm, logits, x, h
+    _free(device)
+    q, k, v = (t.float().contiguous() for t in (q16, k16, v16))
+    keys = k.permute(0, 2, 1, 3)  # (B, Hkv, S, D)
+    with torch.no_grad():
+        out = attn.nystrom_attention(q, k, v, landmarks=m)
+        idx = attn.bless_topm_landmarks(keys, m)
+        qc, kc, vc = (t.cpu() for t in (q, k, v))
+        out_cpu = attn.nystrom_attention(qc, kc, vc, landmarks=m)
+        idx_cpu = attn.bless_topm_landmarks(kc.permute(0, 2, 1, 3), m)
+        sc_cpu = attn.rls_scores_one_rung(kc.permute(0, 2, 1, 3), 128, 1e-3)
+        sc = attn.rls_scores_one_rung(keys, 128, 1e-3)
+        exact = attn.attention(q, k, v, causal=False)
+    err, scale = _err(out.cpu(), out_cpu)
+    res["layer"] = {"index": li, "shape": list(q.shape), "landmarks": _same_selection(
+        idx, idx_cpu, sc_cpu), "score_err": _score_err(sc.cpu(), sc_cpu)[1],
+        "max_abs_err": err, "max_out": scale, "err_over_max": err / scale,
+        "vs_exact_rel_fro": float(torch.linalg.norm(out - exact) / torch.linalg.norm(exact)),
+        "nystrom_ms": (_cuda_ms(lambda: attn.nystrom_attention(q, k, v, landmarks=m), 2)
+                       if on_card else None),
+        "exact_k8_fp32_ms": (_cuda_ms(lambda: attn.attention(q, k, v, causal=False), 2)
+                             if on_card else None)}
+    del out, out_cpu, exact, q, qc
+    # (c) the cache compressed to m rows per (b, kv head), in the cache's dtype
+    with torch.no_grad():
+        kk, vv = attn.bless_compress_cache(k16, v16, m)
+        kk_cpu, vv_cpu = attn.bless_compress_cache(k16.cpu(), v16.cpu(), m)
+        cidx = attn.bless_topm_landmarks(k16.permute(0, 2, 1, 3), m, m_pilot=256, lam=1e-4)
+        cidx_cpu = attn.bless_topm_landmarks(k16.cpu().permute(0, 2, 1, 3), m, m_pilot=256,
+                                              lam=1e-4)
+        csc_cpu = attn.rls_scores_one_rung(k16.cpu().permute(0, 2, 1, 3), 256, 1e-4)
+    rows = {tuple(r) for r in kk.float().cpu()[0, :, 0].tolist()}
+    rows_cpu = {tuple(r) for r in kk_cpu.float()[0, :, 0].tolist()}
+    res["compress"] = {"m": m, "shape": list(kk.shape), "selection": _same_selection(
+        cidx, cidx_cpu, csc_cpu), "rows_equal_as_sets": rows == rows_cpu,
+        "values_gathered": bool(torch.equal(vv.cpu()[0, :, 0], v16.cpu()[0, cidx.cpu()[0, 0], 0])),
+        "ms": (_cuda_ms(lambda: attn.bless_compress_cache(k16, v16, m), 2) if on_card else None)}
+    del kk, vv, k, v, keys
+    _free(device)
+    # (a) beside it: the same model with exact attention (K8 at D = 256)
+    lm = LM(dataclasses.replace(cfg, attention_impl="full"), seed=seed, device=str(device))
+    logits, exact_s, launches, plain = timed_prefill(lm)
+    res.update({"exact_prefill_s": exact_s,
+                "exact_logits_finite": bool(torch.all(torch.isfinite(logits.float()))),
+                "launches": launches, "plain": plain})
+    del lm, logits
+    _free(device)
+    log(f"nystrom: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}")
+    bad = []
+    if not (res["nystrom_logits_finite"] and res["exact_logits_finite"]):
+        bad.append("non-finite logits")
+    if res["layer"]["landmarks"]["untied"] or res["compress"]["selection"]["untied"]:
+        bad.append(f"landmark sets differ beyond ties: {res['layer']['landmarks']}, "
+                   f"{res['compress']['selection']}")
+    if not (res["layer"]["err_over_max"] <= NYSTROM_TOL):
+        bad.append(f"card against CPU {res['layer']['err_over_max']:.3e} > {NYSTROM_TOL}")
+    if not res["compress"]["values_gathered"]:
+        bad.append("the compressed values are not the selected rows")
+    if not res["compress"]["selection"]["differ"] and not res["compress"]["rows_equal_as_sets"]:
+        bad.append("the compressed caches differ as sets")
+    if on_card:
+        if launches["flash_attention"] < n_attn * repeats or nys_launches["flash_attention"]:
+            bad.append(f"K8 launched {launches['flash_attention']} times in {repeats} exact "
+                       f"prefills and {nys_launches['flash_attention']} in the Nystrom ones")
+        if any(c["cuda_calls"] for c in (*plain.values(), *nys_plain.values())):
+            bad.append(f"a plain kernel version ran on the card: {plain}, {nys_plain}")
+    if bad:
+        raise PhaseError("nystrom failed: " + "; ".join(bad))
+    return res
+
+
+#: phase 15: each trainer's peak learning rate (cosine, one warmup step, 100
+#: steps; the issue's range is 3e-4 to 3e-3) and the gradient clip. AdamW's
+#: first steps move every parameter by about the lr, whatever its gradient.
+#: In this phase on the card, gemma-2b's loss over six steps went 12.837 ...
+#: 12.765, 12.813, 12.879 at 1e-3 (its 2.5 B parameters drift, and the loss
+#: rises after the fourth step), jumped to 13.82 at the sixth at 2e-3, and
+#: fell to 12.760 at 5e-4; mamba2-370m's went from 11.217 to 11.191 at 1e-3.
+TRAIN_PEAK_LR = {"gemma-2b": 5e-4, "mamba2-370m": 1e-3}
+TRAIN_CLIP = 1.0
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+
+
+def _opt_config(peak_lr: float):
+    from repro_torch.optim import OptConfig
+
+    return OptConfig(peak_lr=peak_lr, warmup=1, total_steps=100, schedule="cosine",
+                     clip_norm=TRAIN_CLIP)
+
+
+def _cpu_template(state):
+    """``state``'s structure with plain-number leaves: restore_checkpoint then
+    gives CPU tensors (no second copy of the state on the card)."""
+    from repro_torch.training import TrainState
+
+    return TrainState(params={k: 0 for k in state.params},
+                      opt={"step": 0, **{n: {k: 0 for k in state.opt[n]}
+                                         for n in ("master", "mu", "nu")}})
+
+
+def train_run(device, cfg, *, batch: int, seq: int, peak_lr: float, steps: int = 6,
+              loss_chunks: int = 8, resume: bool = False, seed: int = 0) -> dict:
+    """``steps`` AdamW steps of ``cfg`` from random weights on ``SyntheticLM``
+    batches (B = ``batch``, S = ``seq``), microbatches = 1; counts reset
+    before each step and read after. With ``resume``: the state saved with
+    ``repro_torch.checkpoint`` after the last step, then a step at
+    microbatches = 2 taken from it, the checkpoint restored into the state
+    (through host memory) and the same step taken again: the two losses
+    must be the same bits. Gates: loss and grad_norm finite at every step,
+    the last step's loss below the first's, the model's kernel (K8 for
+    attention, K9 for Mamba layers) launched in every layer of every forward
+    (twice under remat: the backward recomputes each layer), and every plain
+    call on the card a backward recompute."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.training import copy_state_, make_train_step, train_state_init
+
+    on_card = torch.device(device).type == "cuda"
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    want = {"flash_attention": n_attn, "ssd": cfg.n_layers - n_attn}
+    want = {k: v * (2 if cfg.remat else 1) for k, v in want.items()}
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=seed, device=str(device))
+    state = train_state_init(lm)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    opt = _opt_config(peak_lr)
+    step = make_train_step(lm, opt, loss_chunks=loss_chunks)
+    pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed, device=str(device))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    records, bad = [], []
+    launches = {n: 0 for n in LM_KERNELS}
+
+    def one(step_fn, i):
+        b = pipe.batch_at(i)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, met = step_fn(state, b)
+        sync(device)
+        rec = {"step": i + 1, "loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+               "lr": float(met["lr"]), "s": time.perf_counter() - t0,
+               "launches": {n: kernels.launch_counts()[n] for n in LM_KERNELS},
+               "plain": kernels.plain_counts()}
+        for n in LM_KERNELS:
+            launches[n] += rec["launches"][n]
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            bad.append(f"step {i + 1}: loss {rec['loss']}, grad_norm {rec['grad_norm']}")
+        if on_card:
+            for n, w in want.items():
+                if rec["launches"][n] < w * (2 if step_fn is not step else 1):
+                    bad.append(f"step {i + 1}: {n} launched {rec['launches'][n]} times")
+        if any(c["cuda_calls"] != c["backward_recomputes"] for c in rec["plain"].values()):
+            bad.append(f"step {i + 1}: a plain forward on the card: {rec['plain']}")
+        log(f"train {cfg.name} step {json.dumps(rec)}")
+        return st, met, rec
+
+    for i in range(steps):
+        state, _, rec = one(step, i)
+        records.append(rec)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch, "seq": seq,
+           "loss_chunks": loss_chunks, "peak_lr": opt.peak_lr, "clip": opt.clip_norm,
+           "params": sum(p.numel() for p in state.params.values()), "init_s": init_s,
+           "losses": [r["loss"] for r in records],
+           "grad_norms": [r["grad_norm"] for r in records],
+           # the first step builds the workspace: the steady steps after it
+           "ms_per_step": 1e3 * sum(r["s"] for r in records[1:]) / max(1, len(records) - 1),
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None}
+    res["tokens_per_s"] = batch * seq / (res["ms_per_step"] / 1e3)
+    if not records[-1]["loss"] < records[0]["loss"]:
+        bad.append(f"the loss did not fall: {res['losses']}")
+    if resume:
+        step2 = make_train_step(lm, opt, microbatches=2, loss_chunks=loss_chunks)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            t0 = time.perf_counter()
+            save_checkpoint(tmp, steps, state)
+            save_s = time.perf_counter() - t0
+            state, m_a, rec = one(step2, steps)
+            t0 = time.perf_counter()
+            _, restored = restore_checkpoint(tmp, _cpu_template(state))
+            copy_state_(state, restored)
+            del restored
+            sync(device)
+            restore_s = time.perf_counter() - t0
+            state, m_b, rec2 = one(step2, steps)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        res["resume"] = {"save_s": save_s, "restore_s": restore_s, "loss": rec["loss"],
+                         "loss_resumed": rec2["loss"], "ms": 1e3 * rec["s"],
+                         "bit_identical": bool(torch.equal(m_a["loss"], m_b["loss"])),
+                         "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                                  if on_card else None)}
+        if not res["resume"]["bit_identical"]:
+            bad.append(f"the resumed step's loss {rec2['loss']!r} is not {rec['loss']!r}")
+    res["launches"] = launches
+    del state, lm, step
+    _free(device)
+    log(f"train {cfg.name}: {json.dumps({k: v for k, v in res.items() if k != 'launches'})}")
+    if bad:
+        raise PhaseError(f"train {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def train_parity(device, cfg, *, batch: int = 1, seq: int = 256, loss_chunks: int = 4,
+                 seed: int = 0) -> dict:
+    """Phase 15 (c): one loss and gradient of ``cfg`` (fp32, cut in depth),
+    the same weights and batch, on ``device`` (its kernels) and on the CPU
+    (their plain versions): loss within 1e-4 relative, each gradient within
+    1e-3 of its max|g|."""
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.training import loss_and_grads, train_state_init
+
+    lm_cpu = LM(cfg, seed=seed, device="cpu")
+    lm = LM(cfg, seed=seed, device="cpu").to(device)
+    b = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed, device="cpu").batch_at(0)
+    kernels.reset_launch_counts()
+    loss, grads = loss_and_grads(lm, train_state_init(lm).params,
+                                 {k: v.to(device) for k, v in b.items()}, loss_chunks=loss_chunks)
+    sync(device)
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    loss_cpu, grads_cpu = loss_and_grads(lm_cpu, train_state_init(lm_cpu).params, b,
+                                         loss_chunks=loss_chunks)
+    worst, worst_name = 0.0, None
+    for k, g in grads_cpu.items():
+        e = float((grads[k].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if not e <= worst:
+            worst, worst_name = e, k
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+           "seq": seq,
+           "loss": float(loss), "loss_cpu": float(loss_cpu),
+           "loss_rel": abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)),
+           "grad_worst": worst, "grad_worst_param": worst_name,
+           "launches": {n: launches[n] for n in LM_KERNELS}, "plain": plain}
+    del lm, grads, lm_cpu, grads_cpu
+    _free(device)
+    log(f"train parity: {json.dumps(res)}")
+    bad = []
+    if not res["loss_rel"] <= TRAIN_LOSS_RTOL:
+        bad.append(f"loss {res['loss_rel']:.3e} relative > {TRAIN_LOSS_RTOL}")
+    if not worst <= TRAIN_GRAD_TOL:
+        bad.append(f"gradient {worst_name} {worst:.3e} of its max > {TRAIN_GRAD_TOL}")
+    if torch.device(device).type == "cuda" and not any(res["launches"].values()):
+        bad.append("no LM kernel launched")
+    if bad:
+        raise PhaseError(f"train parity {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def train(device, *, seed: int = 0, gemma=None, mamba=None, gemma_shape=(2, 2048),
+          mamba_shape=(4, 2048), parity_layers: int = 2, parity_seq: int = 256,
+          peak_lr: float | None = None) -> dict:
+    """Phase 15: (a) gemma-2b at full width and depth, bf16, remat, 6 steps
+    of 2 x 2 048 tokens and the resumed 7th (d); (b) mamba2-370m at full
+    width and depth (48 layers, N = 128), 6 steps of 4 x 2 048 tokens; (c)
+    one fp32 step of each cut to 2 layers, card against CPU. ``peak_lr``
+    replaces both models' ``TRAIN_PEAK_LR``."""
+    from repro_torch.configs import get_config
+
+    gemma = gemma or get_config("gemma-2b")
+    mamba = mamba or get_config("mamba2-370m")
+    lrs = {c: peak_lr or TRAIN_PEAK_LR[c.name] for c in (gemma, mamba)}
+    res = {"gemma": train_run(device, gemma, batch=gemma_shape[0], seq=gemma_shape[1],
+                              peak_lr=lrs[gemma], resume=True, seed=seed),
+           "mamba": train_run(device, mamba, batch=mamba_shape[0], seq=mamba_shape[1],
+                              peak_lr=lrs[mamba], seed=seed)}
+    res["parity"] = [train_parity(device, dataclasses.replace(c, n_layers=parity_layers,
+                                                              dtype="float32"),
+                                  seq=parity_seq, seed=seed) for c in (gemma, mamba)]
+    res["launches"] = {n: res["gemma"]["launches"][n] + res["mamba"]["launches"][n]
+                       for n in LM_KERNELS}
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2453,18 +2888,22 @@ def main(argv=None) -> int:
         del tensors, bless_t  # the LM phases need the card's memory
         _free("cuda")
         lm_worst = lm_kernel_parity("cuda", seed=args.seed)
+        wide = wide_kernel_times("cuda", seed=args.seed)
         dvf = decode_vs_forward("cuda", seed=args.seed)
         srv = serve("cuda", seed=args.seed)
+        nys = nystrom("cuda", seed=args.seed)
+        trn = train("cuda", seed=args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
     # launches: the main paths' counts added (each reset just before its path):
     # the four FALKON paths, phase 12's serving / streaming / online work and
-    # phase 13's sharded and guarded fits (its ranks' too) for K1-K7, the LM forward of phase 10 and the prefill + serving of
-    # phase 11 for K8 and K9
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv)
-    launches = {name: sum(p["launches"][name] for p in paths) for name in {**KERNELS,
-                                                                             **LM_KERNELS}}
+    # phase 13's sharded and guarded fits (its ranks' too) for K1-K7; for K8 and
+    # K9 the LM forward of phase 10, the prefill + serving of phase 11, phase
+    # 14's exact prefill and phase 15's training steps
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn)
+    launches = {name: sum(p["launches"].get(name, 0) for p in paths)
+                for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
         errs[name] = srv["kernels"][name]["max_abs_err"]
         times[name] = srv["kernels"][name]
@@ -2537,6 +2976,32 @@ def main(argv=None) -> int:
         f"ms, K9 {srv['kernels']['ssd']['ms']:.4f} ms per call (at the wrapper's default chunk 128: "
         f"{srv['kernels']['ssd_chunk128']['ms']:.4f} ms, plain "
         f"{srv['kernels']['ssd_chunk128']['plain_ms']:.4f} ms)")
+    g16, m16 = wide["flash_attention@gemma"], wide["ssd@mamba"]
+    g32 = wide["flash_attention@gemma@fp32"]
+    log(f"K8 at gemma-2b's layer {json.dumps(list(GEMMA_ATTN))}, bf16: {g16['ms']:.4f} ms "
+        f"(bound {g16['bound_ms']:.4f}, {g16['bound_by']}; SDPA {g16['library_ms']:.4f}; plain "
+        f"{g16['plain_ms']:.3f}); fp32 {g32['ms']:.4f} ms (SDPA {g32['library_ms']:.4f}); K9 "
+        f"at mamba2-370m's layer {json.dumps(list(MAMBA_SSD))}, bf16: {m16['ms']:.4f} ms "
+        f"(bound {m16['bound_ms']:.4f}, {m16['bound_by']}; plain {m16['plain_ms']:.3f})")
+    ly, cp = nys["layer"], nys["compress"]
+    log(f"nystrom ({nys['arch']}, {nys['n_layers']} layers, {nys['dtype']}, {nys['prompt']} "
+        f"tokens, {nys['landmarks']} landmarks): prefill {nys['nystrom_prefill_s']:.4f} s "
+        f"against {nys['exact_prefill_s']:.4f} s exact (K8); one layer card vs CPU "
+        f"{ly['err_over_max']:.3e} of max|out| (landmarks differing "
+        f"{ly['landmarks']['differ']}), against exact attention {ly['vs_exact_rel_fro']:.3e} "
+        f"(relative Frobenius), {ly['nystrom_ms']:.3f} ms vs K8 fp32 "
+        f"{ly['exact_k8_fp32_ms']:.3f} ms; compress to {cp['m']} rows {cp['ms']:.3f} ms")
+    for key in ("gemma", "mamba"):
+        t = trn[key]
+        resume = t.get("resume")
+        log(f"train {t['arch']} ({t['n_layers']} layers, {t['dtype']}, {t['batch']} x "
+            f"{t['seq']}, peak lr {t['peak_lr']}): {t['ms_per_step']:.1f} ms per step, "
+            f"{t['tokens_per_s']:.1f} tokens/s, max allocated {t['max_memory_allocated']} B, "
+            f"losses {json.dumps([round(x, 4) for x in t['losses']])}"
+            + (f"; resume: save {resume['save_s']:.1f} s, restore {resume['restore_s']:.1f} s, "
+               f"bit-identical {resume['bit_identical']}" if resume else ""))
+    log("train parity (fp32, card against CPU; loss relative, worst gradient over its max): "
+        + json.dumps([(p["arch"], p["loss_rel"], p["grad_worst"]) for p in trn["parity"]]))
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -492,18 +492,18 @@ def require_cuda_device(device: torch.device | str = "cuda") -> torch.device:
 
 
 #: rows past which ``default_backend`` streams X from host memory, as the
-#: reference's ``_STREAM_MIN_ROWS``. ``REPRO_STREAM_MIN_ROWS`` overrides it
-#: only for parity with the reference's documented knob (same name, same
-#: default); nothing in the port sets it.
+#: reference's ``_STREAM_MIN_ROWS``; ``REPRO_STREAM_MIN_ROWS`` overrides it.
 STREAM_MIN_ROWS = 1 << 21
 #: rows from which a process group of more than one rank shards the data,
-#: as the reference's ``_SHARD_MIN_ROWS``.
+#: as the reference's ``_SHARD_MIN_ROWS``; ``REPRO_SHARD_MIN_ROWS`` overrides it.
 SHARD_MIN_ROWS = 1 << 15
 
 
-def _stream_min_rows() -> int:
-    env = os.environ.get("REPRO_STREAM_MIN_ROWS", "").strip()
-    return int(env) if env else STREAM_MIN_ROWS
+def _threshold(env: str, default: int) -> int:
+    """A threshold with its environment override (empty or unset: the
+    default), read at every call, as the reference's ``_threshold``."""
+    raw = os.environ.get(env, "").strip()
+    return int(raw) if raw else default
 
 
 def _sharded(n: int | None) -> bool:
@@ -511,30 +511,60 @@ def _sharded(n: int | None) -> bool:
     enough to amortize its collectives."""
     from .distributed import data_group, world
 
-    return n is not None and n >= SHARD_MIN_ROWS and world(data_group())[1] > 1
+    return (n is not None and n >= _threshold("REPRO_SHARD_MIN_ROWS", SHARD_MIN_ROWS)
+            and world(data_group())[1] > 1)
+
+
+def _env_backend(device: torch.device | str | None, n: int | None) -> Backend | None:
+    """The backend ``REPRO_BACKEND`` names (None when unset, empty or
+    "auto"): a registered name or an ``"outer:inner"`` spec, resolved by
+    ``resolve_backend``; anything else raises a ``ValueError`` naming the
+    variable, as the reference's ``default_backend`` does."""
+    env = os.environ.get("REPRO_BACKEND", "").strip().lower()
+    if not env or env == "auto":
+        return None
+    from .gram import resolve_backend
+
+    try:
+        return resolve_backend(env, device=device, n=n)
+    except ValueError as e:
+        raise ValueError(f"REPRO_BACKEND={env!r}: {e}; or 'auto'") from None
 
 
 def default_backend(device: torch.device | str | None = None, *,
                     n: int | None = None) -> Backend:
-    """``CudaBackend`` for data on a CUDA device; anything else raises.
+    """The backend named by ``REPRO_BACKEND`` if it is set; else
+    ``CudaBackend`` for data on a CUDA device, and anything else raises.
+
+    ``REPRO_BACKEND`` (the reference's knob) pins a backend without code
+    edits: a registered name (``torch``, ``cuda``, ``sharded``, ``guarded``,
+    ``stream``) or a composite spec (``"stream:cuda"``); ``""`` and
+    ``"auto"`` fall through to the rules below, any other value raises
+    ``ValueError``. A ``backend=`` the caller passes wins over it (this
+    function runs only when none is given). ``GuardedBackend`` is chosen
+    only by this variable or by name, never by the rules.
 
     ``device`` is where the data lives (None means the default, the card).
     Data on the CPU runs only when the caller names the CPU path
     (``TorchBackend`` / ``backend="torch"`` / ``FitConfig(device="cpu")``).
     ``n`` is the dataset's row count when the caller knows it: in a process
-    group of more than one rank, from ``SHARD_MIN_ROWS`` rows the pick is
-    ``ShardedBackend()`` (the CUDA kernels on each rank's rows); at
-    ``REPRO_STREAM_MIN_ROWS`` rows and above it is wrapped in the
-    out-of-core ``StreamBackend`` (its inner backend keeps building each
-    tile, X streams chunk by chunk).
+    group of more than one rank, from ``SHARD_MIN_ROWS`` rows
+    (``REPRO_SHARD_MIN_ROWS``) the pick is ``ShardedBackend()`` (the CUDA
+    kernels on each rank's rows); at ``STREAM_MIN_ROWS`` rows
+    (``REPRO_STREAM_MIN_ROWS``) and above it is wrapped in the out-of-core
+    ``StreamBackend`` (its inner backend keeps building each tile, X
+    streams chunk by chunk).
     """
+    picked = _env_backend(device, n)
+    if picked is not None:
+        return picked
     device = require_cuda_device("cuda" if device is None else device)
     if device.type != "cuda":
         raise RuntimeError(
             f"no backend is chosen by default for data on {device}; pass "
             "backend='torch' (or FitConfig(device='cpu')) to run on the CPU")
-    picked: Backend = ShardedBackend() if _sharded(n) else CudaBackend()
-    if n is not None and n >= _stream_min_rows():
+    picked = ShardedBackend() if _sharded(n) else CudaBackend()
+    if n is not None and n >= _threshold("REPRO_STREAM_MIN_ROWS", STREAM_MIN_ROWS):
         from ..stream import StreamBackend
 
         return StreamBackend(inner=picked)

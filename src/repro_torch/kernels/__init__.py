@@ -26,12 +26,30 @@ WRAPPERS = {
 }
 
 
+#: the plain versions of the kernels that have a gradient (K8, K9): each
+#: counts its calls on CUDA tensors, and the wrapper its backward recomputes.
+PLAIN = {"flash_attention": flash_attention_ops.attention_ref, "ssd": ssd_ops.ssd_ref}
+
+
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count to 0, and the K8 / K9 plain-call and
+    backward-recompute counts with them."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name, ref in PLAIN.items():
+        ref.cuda_calls = 0
+        WRAPPERS[name].backward_recomputes = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Each wrapper's launch count since the last reset."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def plain_counts() -> dict[str, dict[str, int]]:
+    """For K8 and K9 since the last reset: the plain version's calls on CUDA
+    tensors and the backward recomputes among them. A forward pass on the
+    card makes none of the first that is not one of the second."""
+    return {name: {"cuda_calls": ref.cuda_calls,
+                   "backward_recomputes": WRAPPERS[name].backward_recomputes}
+            for name, ref in PLAIN.items()}

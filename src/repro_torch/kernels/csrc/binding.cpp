@@ -365,7 +365,7 @@ void flash_attention(const at::Tensor& q, const at::Tensor& k, const at::Tensor&
                   k.size(0) == q.size(0) && k.size(2) == q.size(2) && k.size(3) == q.size(3),
               "need q (b, hq, s, d) and k, v (b, hkv, s, d)");
   TORCH_CHECK(k.size(1) > 0 && q.size(1) % k.size(1) == 0, "hq must be a multiple of hkv");
-  TORCH_CHECK(q.size(3) >= 1 && q.size(3) <= 128, "flash_attention takes a head dim of 1 to 128");
+  TORCH_CHECK(q.size(3) >= 1 && q.size(3) <= 256, "flash_attention takes a head dim of 1 to 256");
   if (q.numel() == 0) return;
   const c10::cuda::CUDAGuard guard(q.device());
   repro::launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

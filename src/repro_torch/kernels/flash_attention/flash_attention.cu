@@ -17,6 +17,13 @@
 // the dense bf16 tensor-core peak (989 TFLOP/s), the bound chip_smoke.py
 // states; 2.07 ms with them at the 67 TFLOP/s fp32 FMA peak.
 //
+// Head dims 1 to 256, in both dtypes. D is never padded in device memory:
+// each kernel zero-pads it to DP in shared memory and masks the ragged
+// columns itself. DP is D rounded up to a multiple of 32 up to 128, and to
+// 192 or 256 above (two wide instantiations per kernel, not six); a D the
+// dispatch has no case for throws std::invalid_argument (pybind11 raises it
+// as a ValueError) instead of running a narrower tile.
+//
 // Two kernels, one per dtype. Both walk the kv tiles of one (b, h, query
 // tile) inside one block (the TPU's sequential kv grid axis), longest causal
 // sweep first (query tile nq - 1 - blockIdx.x), and under `causal` stop at
@@ -30,7 +37,12 @@
 // block owns 128 query rows, 8 warps of 16 rows (faster than 64 rows in 4
 // warps: each K/V tile staged feeds twice the rows; at about 200 registers
 // a thread, one block runs per SM). The q tile is staged once and held in
-// registers as ldmatrix A fragments for the whole sweep. K and V stream in 64-key tiles through a 2-stage shared-memory ring
+// registers as ldmatrix A fragments for the whole sweep at DP <= 128; at DP
+// 192 and 256 the O accumulator alone is 96 and 128 fp32 registers a lane,
+// so the q fragments are reloaded from the staged q tile (which stays in
+// shared memory until the epilogue) at every k-step instead: 16 more
+// ldmatrix.x4 per warp and kv tile against the 64 of K, and 64 registers
+// a lane fewer. K and V stream in 64-key tiles through a 2-stage shared-memory ring
 // filled by 16-byte cp.async (zero-filled past S), rows padded by 16 bytes
 // so that ldmatrix has no bank conflicts. S = Q K^T is
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with K row-major as the
@@ -54,10 +66,15 @@
 // and sum of its 4 rows. A row's 64 scores are held by the 16 lanes of one
 // half-warp, so its max and sum are shuffle butterflies over them. Ragged S
 // and D are masked in the kernel (lanes past D load zeros and are not
-// stored). Later work for bf16: wgmma, TMA and warp specialisation.
+// stored). At DP = 256 the tiles take (64 * 257 + 256 * 65 + 64 * 256 +
+// 64 * 65) * 4 = 214 528 bytes of shared memory (one block per SM, under the
+// 232 448-byte opt-in limit) and each thread 4 x 16 accumulators; BQ stays
+// 64. Later work for bf16: wgmma, TMA and warp specialisation.
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <stdexcept>
+#include <string>
 
 #include "launchers.h"
 
@@ -213,13 +230,21 @@ void launch(const float* q, const float* k, const float* v, float* out, int b, i
 
 void dispatch(const float* q, const float* k, const float* v, float* out, int b, int hq,
               int hkv, int s, int d, float scale, bool causal, cudaStream_t st) {
-  // the head dim rounded up to a multiple of 32 (16 threads x an even DC)
+  // the head dim rounded up to a multiple of 32 (16 threads x an even DC),
+  // then to 192 or 256 above 128
   const int dp = (d + 31) / 32 * 32;
   switch (dp / 16) {
     case 2: launch<2>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
     case 4: launch<4>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
     case 6: launch<6>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
-    default: launch<8>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
+    case 8: launch<8>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
+    case 10:
+    case 12: launch<12>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
+    case 14:
+    case 16: launch<16>(q, k, v, out, b, hq, hkv, s, d, scale, causal, st); break;
+    // no tile takes this head dim: refuse it rather than run a narrower one
+    default: throw std::invalid_argument("flash_attention takes a head dim of 1 to 256, got " +
+                                         std::to_string(d));
   }
 }
 
@@ -311,6 +336,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
   constexpr int BQ_ = 16 * MMA_WARPS, NT = 32 * MMA_WARPS, LD = DP + MMA_PAD;
   constexpr int KS = DP / 16;      // k-steps of Q K^T; column pairs of P V
   constexpr int NS = MMA_BK / 8;   // 8-key score tiles per kv tile
+  constexpr bool Q_IN_REGS = DP <= 128;  // else reloaded from qs at every k-step
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [BQ_][LD]
   __nv_bfloat16* ks = qs + BQ_ * LD;                                 // [2][MMA_BK][LD]
@@ -333,7 +359,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
   stage_rows<MMA_BK, DP, NT>(vs, vg, 0, s, d, vec, tid);
   cp_async_commit();
 
-  unsigned qf[KS][4];
+  unsigned qf[Q_IN_REGS ? KS : 1][4];
   float o[DP / 8][4];
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j)
@@ -352,9 +378,9 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
     cp_async_commit();
     cp_async_wait_one();  // tile it (and, at it = 0, the q tile) has landed
     __syncthreads();
-    if (it == 0) {
+    if (Q_IN_REGS && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
+      for (int kk = 0; kk < (Q_IN_REGS ? KS : 1); ++kk)
         ldsm_x4(qf[kk], smem_u32(qs + (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
     }
     const int k0 = it * MMA_BK;
@@ -368,15 +394,23 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
       // S = Q K^T: one ldmatrix.x4 gives the B fragments of two 8-key tiles
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned qa[4];
+        if constexpr (Q_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[Q_IN_REGS ? kk : 0][e];
+        } else {
+          ldsm_x4(qa, smem_u32(qs + (16 * warp + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
+        }
 #pragma unroll
         for (int jp = 0; jp < NS / 2; ++jp) {
           unsigned bf[4];
           ldsm_x4(bf, smem_u32(kt + (16 * jp + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                                ((lane >> 3) & 1) * 8));
-          mma_bf16(sc[2 * jp], qf[kk], bf[0], bf[1]);
-          mma_bf16(sc[2 * jp + 1], qf[kk], bf[2], bf[3]);
+          mma_bf16(sc[2 * jp], qa, bf[0], bf[1]);
+          mma_bf16(sc[2 * jp + 1], qa, bf[2], bf[3]);
         }
+      }
       const bool edge = k0 + MMA_BK > s || (causal && k0 + MMA_BK - 1 > wq0);
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -486,17 +520,25 @@ void dispatch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfl
                   bool causal, cudaStream_t st) {
   const bool vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
   // the head dim rounded up to a multiple of 32 (zero columns in shared memory)
+  // (then to 192 or 256 above 128)
   switch ((d + 31) / 32) {
     case 1: launch_mma<32>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
     case 2: launch_mma<64>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
     case 3: launch_mma<96>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
-    default: launch_mma<128>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
+    case 4: launch_mma<128>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
+    case 5:
+    case 6: launch_mma<192>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
+    case 7:
+    case 8: launch_mma<256>(q, k, v, out, b, hq, hkv, s, d, scale, causal, vec, st); break;
+    // no tile takes this head dim: refuse it rather than run a narrower one
+    default: throw std::invalid_argument("flash_attention takes a head dim of 1 to 256, got " +
+                                         std::to_string(d));
   }
 }
 
 }  // namespace
 
-// b, s >= 1, 1 <= d <= 128, hq % hkv == 0 (the binding checks all four).
+// b, s >= 1, 1 <= d <= 256, hq % hkv == 0 (the binding checks all four).
 void repro::launch_flash_attention(const void* q, const void* k, const void* v, void* out,
                                    int b, int hq, int hkv, int s, int d, float scale,
                                    bool causal, bool bf16, cudaStream_t st) {

@@ -6,6 +6,8 @@ to -1e30 (not -inf), kv heads broadcast to their q-head groups, and the query
 rows taken ``chunk`` at a time so the largest intermediate is (B, Hq, chunk,
 S). ``softcap > 0`` applies the reference's ``softcap * tanh(s / softcap)``
 to the scores (the CUDA kernel has no softcap; no configuration sets one).
+``attention_ref.cuda_calls`` counts its calls on CUDA tensors: K8's backward
+and the checks that hold the kernel to it make them, never a forward pass.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ CHUNK = 512
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                   softcap: float = 0.0, chunk: int = CHUNK) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype."""
+    if q.is_cuda:
+        attention_ref.cuda_calls += 1
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -40,3 +44,6 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
         p = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
     return torch.cat(outs, dim=2) if outs else q.new_zeros(q.shape)
+
+
+attention_ref.cuda_calls = 0

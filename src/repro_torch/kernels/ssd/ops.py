@@ -10,6 +10,14 @@ extension ``build.py`` loads) or the call raises; a CPU tensor goes to the
 plain version in ``ref.py``. ``ssd.launches`` counts the wrapper's kernel
 calls (each runs three launches: the chunk states, the state passing, the
 chunk scan).
+
+Gradients. The reference has no backward kernel: it trains through its jnp
+``ssd_chunked()``, whose gradient XLA derives. On the card the wrapper is a
+``torch.autograd.Function``: its forward is always the kernel's output, and
+its backward recomputes the plain version under autograd on the saved
+inputs and returns that function's gradient (``ssd.backward_recomputes``
+counts these; ``ref.ssd_ref.cuda_calls`` counts every plain call on a CUDA
+tensor). A backward kernel is later work (ROADMAP B).
 """
 from __future__ import annotations
 
@@ -86,14 +94,9 @@ def _check(x, dt, a, b, c) -> None:
                          f"{[tuple(t.shape) for t in (x, dt, a, b, c)]}")
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-        *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan of x with decays exp(dt a), inputs B and readouts C."""
-    _check(x, dt, a, b, c)
-    if is_cpu(x, dt, a, b, c):
-        return ssd_ref(x, dt, a, b, c, chunk=chunk)
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
+def _launch(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K9 call (three launches, counted once) on CUDA tensors."""
     bsz, s, h, p = x.shape
     n = b.shape[2]
     plan = ssd_plan(s, h, p, n, chunk)
@@ -115,7 +118,47 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: 
     return y, state
 
 
+class _Ssd(torch.autograd.Function):
+    """K9 forward; the plain version's gradient, recomputed, backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        return _launch(x, dt, a, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        saved = ctx.saved_tensors
+        ssd.backward_recomputes += 1
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, ctx.needs_input_grad[:5])]
+            outs = ssd_ref(*leaves, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_state)) if g is not None]
+            wrt = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                           allow_unused=True))
+        return (*(next(got) if t.requires_grad else None for t in leaves), None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan of x with decays exp(dt a), inputs B and readouts C.
+    Differentiable on both devices (see the module docstring)."""
+    _check(x, dt, a, b, c)
+    if is_cpu(x, dt, a, b, c):
+        return ssd_ref(x, dt, a, b, c, chunk=chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        return _Ssd.apply(x, dt, a, b, c, chunk)
+    return _launch(x, dt, a, b, c, chunk)
+
+
 ssd.launches = 0
+ssd.backward_recomputes = 0
 
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -8,6 +8,8 @@ chunk's start. All fp32; y in x's dtype. ``ssd_ref`` is the kernel's
 signature, with one B/C group given as (B, S, N): it pads S to a chunk
 multiple with dt = 0 (an identity step) and zero x, B and C, as the
 reference's wrapper does, so y[:S] and the final state are exact.
+``ssd_ref.cuda_calls`` counts its calls on CUDA tensors: K9's backward and
+the checks that hold the kernel to it make them, never a forward pass.
 """
 from __future__ import annotations
 
@@ -76,6 +78,8 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor, *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H, P), dt (B, S, H), a (H,), b/c (B, S, N), any S ->
     (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
+    if x.is_cuda:
+        ssd_ref.cuda_calls += 1
     s = x.shape[1]
     pad = -s % chunk if s > chunk else 0
     if pad:
@@ -84,3 +88,6 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     for t in (dt, b, c))  # dt = 0: an identity step
     y, state = ssd_chunked(x, dt, a, b[:, :, None, :], c[:, :, None, :], chunk=chunk)
     return y[:, :s], state
+
+
+ssd_ref.cuda_calls = 0

@@ -2,9 +2,10 @@
 
 The port of the reference's ``repro.models.layers``. Parameters keep the
 reference's (in, out) layout, so a layer computes ``x @ w`` and weights carry
-across unchanged (``repro_torch.interop``). ``rms_norm`` is the forward only
-(the reference's custom VJP is a training concern, and so is ``lowp``'s
-gradient boundary: ``lowp`` is the identity here).
+across unchanged (``repro_torch.interop``). ``rms_norm`` and ``lowp`` are
+``torch.autograd.Function``s with the reference's custom VJPs: rms_norm's dx
+comes back in x's dtype and its dgamma is the sum over all rows in gamma's;
+``lowp`` is the identity whose cotangent is cast to the forward dtype.
 """
 from __future__ import annotations
 
@@ -35,23 +36,60 @@ def ninit(shape, *, generator: torch.Generator, scale: float | None = None,
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter without gradient (the port serves; training is a later slice)."""
+    """A parameter that asks for no gradient: the model serves as built, and
+    training differentiates the ``TrainState``'s tensors put in its place
+    (``repro_torch.training``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
 # --- norms -----------------------------------------------------------------
 
 
+class _RmsNorm(torch.autograd.Function):
+    """The reference's ``_rms_fwd`` / ``_rms_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        xf = x.float()
+        inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, gamma, inv)
+        return (xf * inv * (1.0 + gamma.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, inv = ctx.saved_tensors
+        xhat = x.float() * inv
+        dxhat = dy.float() * (1.0 + gamma.float())
+        # d/dx of x * rsqrt(mean(x^2) + eps)
+        dx = inv * (dxhat - xhat * torch.mean(dxhat * xhat, dim=-1, keepdim=True))
+        dgamma = torch.sum(dy.float() * xhat, dim=tuple(range(x.ndim - 1)))
+        return dx.to(x.dtype), dgamma.to(gamma.dtype), None
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with a (1 + gamma) gain, fp32 inside, x's dtype out."""
-    xf = x.float()
-    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (xf * inv * (1.0 + gamma.float())).to(x.dtype)
+    """RMSNorm with a (1 + gamma) gain, fp32 inside, x's dtype out; its
+    gradient dx is cast back to x's dtype (the reference's low-precision
+    gradient boundary)."""
+    return _RmsNorm.apply(x, gamma, eps)
+
+
+class _Lowp(torch.autograd.Function):
+    """The reference's ``_lowp_fwd`` / ``_lowp_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.to(ctx.dtype)
 
 
 def lowp(x: torch.Tensor) -> torch.Tensor:
-    """Identity (the reference's low-precision gradient boundary)."""
-    return x
+    """Identity whose gradient is cast to x's dtype (the reference's
+    low-precision gradient boundary on the q/k/v projections)."""
+    return _Lowp.apply(x)
 
 
 # --- rotary ----------------------------------------------------------------

@@ -11,8 +11,13 @@ flat ``layers`` list: layer ``g * period + j`` is the reference's
 The reference pads q heads to a multiple of its 16-way model axis and
 masks the padded heads before ``wo`` (exact, shard-friendly); that is a
 sharding artefact, and the port uses ``n_heads`` and ``n_kv_heads`` as given.
-Training (``loss_fn``), the sharding specs and BLESS-Nystrom attention are
-later slices of the port.
+The sharding specs (``param_specs``, ``cache_specs``) are a later slice.
+
+``LM.forward`` is differentiable (K8 and K9 carry ``autograd.Function``s):
+under ``cfg.remat`` each layer is checkpointed when a gradient is taken, as
+the reference's per-layer ``jax.checkpoint``. ``loss_fn`` is the
+reference's chunked cross-entropy. Serving runs without a graph
+(``decode_step`` and ``serving.prefill_logits`` under ``torch.no_grad``).
 
 Decode caches are plain dicts, one per layer, updated in place by
 ``decode_step`` (the reference returns a new cache pytree).
@@ -23,8 +28,9 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .attention import attention, decode_attention
+from .attention import attention, decode_attention, nystrom_attention
 from .config import ArchConfig
 from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
                      sinusoidal_pos)
@@ -42,15 +48,13 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 class Attention(nn.Module):
     """q/k/v projections, optional qk-norm, rotary positions, exact attention
-    (K8 on the card), output projection."""
+    (K8 on the card) or, with ``attention_impl="bless_nystrom"`` past
+    ``nystrom_landmarks`` positions, BLESS-Nystrom attention, output
+    projection. Decode keeps its full cache, as the reference's does."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator, dtype: torch.dtype,
                  device):
         super().__init__()
-        if cfg.attention_impl == "bless_nystrom":
-            raise NotImplementedError(
-                "attention_impl='bless_nystrom' (BLESS-Nystrom attention) is a later slice of "
-                "the port (ROADMAP A, slice 5)")
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.head_dim
         kw = dict(generator=generator, dtype=dtype, device=device)
@@ -85,8 +89,11 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         q, k, v = self._qkv(x, positions, mrope_pos)
-        out = attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk,
-                        softcap=cfg.attn_logit_softcap)
+        if cfg.attention_impl == "bless_nystrom" and s > cfg.nystrom_landmarks:
+            out = nystrom_attention(q, k, v, landmarks=cfg.nystrom_landmarks)
+        else:
+            out = attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk,
+                            softcap=cfg.attn_logit_softcap)
         return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ self.wo
 
     def decode(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -161,7 +168,9 @@ class LM(nn.Module):
     numbers: carry those across with ``repro_torch.interop``).
 
     ``device`` defaults to the card and raises when there is none; pass
-    ``device="cpu"`` to run the plain versions of the kernels.
+    ``device="cpu"`` to run the plain versions of the kernels. On
+    ``device="meta"`` the model holds no weights: a skeleton that
+    ``torch.func.functional_call`` runs on a ``TrainState``'s params.
     """
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device: str = "cuda"):
@@ -170,7 +179,8 @@ class LM(nn.Module):
             raise RuntimeError("no CUDA device: LM runs on the card unless given device='cpu'")
         self.cfg = cfg
         dtype = model_dtype(cfg)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if torch.device(device).type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
         kw = dict(generator=gen, dtype=dtype, device=device)
         vp, d = padded_vocab(cfg), cfg.d_model
         self.final_norm = param(torch.zeros((d,), dtype=dtype, device=device))
@@ -197,24 +207,35 @@ class LM(nn.Module):
             x = torch.cat([batch["pixel_embeds"].to(x.dtype), x[:, n:]], dim=1)
         return x
 
-    @torch.no_grad()
     def forward(self, batch: dict) -> torch.Tensor:
         """Full-sequence forward -> final hidden states (B, S, d). ``batch``
         holds "tokens" (B, S) (or "frames"), and optionally "positions",
-        "mrope_positions" and "pixel_embeds", as the reference's does."""
+        "mrope_positions" and "pixel_embeds", as the reference's does. When
+        a gradient is taken and ``cfg.remat`` is set, each layer is
+        recomputed in the backward instead of keeping its activations
+        (``torch.utils.checkpoint``, non-reentrant)."""
         x = self._embed_in(batch)
         b, s, _ = x.shape
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
         mrope_pos = batch.get("mrope_positions")
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, positions, mrope_pos)
+            if remat:
+                x = checkpoint(layer, x, positions, mrope_pos, use_reentrant=False)
+            else:
+                x = layer(x, positions, mrope_pos)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def head(self) -> torch.Tensor:
+        """The output projection (d, padded vocab): the tied embedding's
+        transpose or ``out_head``."""
+        return self.embed.T if self.cfg.tie_embeddings else self.out_head
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states (..., d) -> logits (..., padded vocab)."""
-        return h @ (self.embed.T if self.cfg.tie_embeddings else self.out_head)
+        return h @ self.head()
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> list[dict[str, Any]]:
         """One dict per layer: {"k", "v"} (B, max_len, Hkv, head_dim) for
@@ -253,3 +274,44 @@ class LM(nn.Module):
         for layer, c in zip(self.layers, cache):
             x = layer.decode(x, c, pos, length, mrope_pos)
         return self.logits(rms_norm(x[:, 0], self.final_norm, self.cfg.norm_eps))
+
+
+def logits_fn(lm: LM, h: torch.Tensor) -> torch.Tensor:
+    """The reference's ``logits_fn``: hidden states -> padded-vocab logits."""
+    return lm.logits(h)
+
+
+def _chunk_nll(hc: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """-sum of the log-likelihoods of one sequence chunk: logits in the
+    model's dtype, then fp32, padded vocabulary at -1e30."""
+    logits = (hc @ w).float()
+    logits = torch.where(valid, logits, logits.new_full((), -1e30))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 2, labels[..., None])[..., 0] - lse
+    return -torch.sum(ll)
+
+
+def loss_fn(lm: LM, batch: dict, *, n_chunks: int = 8) -> torch.Tensor:
+    """Chunked softmax cross-entropy, the reference's ``loss_fn``: the
+    logits exist one sequence chunk at a time ((B, S / n, Vp)), never as
+    (B, S, Vp); the chunk sums are added and divided by B S. When a
+    gradient is taken each chunk is checkpointed, so its logits are
+    recomputed in the backward rather than kept. ``batch`` adds "labels"
+    (B, S) to the forward's inputs."""
+    h = lm(batch)
+    b, s, _ = h.shape
+    w = lm.head()
+    n_chunks = min(n_chunks, s)
+    if s % n_chunks:
+        raise ValueError(f"S = {s} is not a multiple of n_chunks = {n_chunks}")
+    sc = s // n_chunks
+    valid = torch.arange(w.shape[1], device=h.device) < lm.cfg.vocab_size
+    labels = batch["labels"]
+    grad = torch.is_grad_enabled()
+    sums = []
+    for i in range(n_chunks):
+        args = (h[:, i * sc:(i + 1) * sc], labels[:, i * sc:(i + 1) * sc], w, valid)
+        sums.append(checkpoint(_chunk_nll, *args, use_reentrant=False) if grad
+                    else _chunk_nll(*args))
+    return torch.sum(torch.stack(sums)) / (b * s)

@@ -34,6 +34,7 @@ def prefill(lm: LM, tokens: torch.Tensor, cache_len: int) -> tuple[torch.Tensor,
     return logits, cache
 
 
+@torch.no_grad()
 def prefill_logits(lm: LM, batch: dict) -> torch.Tensor:
     """Parallel prompt forward -> last-position logits (B, Vp)."""
     return lm.logits(lm(batch)[:, -1])

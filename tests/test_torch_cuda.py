@@ -514,7 +514,10 @@ ATTN_CASES = [(1, 4, 4, 1, 8, True), (2, 8, 2, 300, 64, True), (1, 8, 1, 1000, 8
               (2, 4, 4, 300, 64, False), (1, 2, 2, 129, 128, False), (1, 4, 1, 77, 32, True),
               (1, 2, 1, 200, 17, True)] + [
     (1, hq, hkv, s, d, causal) for d in (17, 32, 80, 128) for s in (1, 129, 2053)
-    for hq, hkv, causal in ((8, 8, True), (8, 2, True), (8, 1, True), (8, 2, False))]
+    for hq, hkv, causal in ((8, 8, True), (8, 2, True), (8, 1, True), (8, 2, False))] + [
+    # the 192- and 256-wide tiles (gemma-2b's D = 256), ragged D among them
+    (1, hq, hkv, s, d, causal) for d in (129, 200, 256) for s in (1, 1000, 2053)
+    for hq, hkv, causal in ((8, 1, True), (8, 2, False))] + [(2, 8, 1, 2048, 256, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -618,8 +621,8 @@ def test_lm_kernels_count_launches_and_refuse_what_they_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="softcap"):
         attn.attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), causal=True,
                        softcap=30.0)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(*(torch.zeros((1, 1, 8, 256), device=dev),) * 3)
+    with pytest.raises(ValueError, match="head dim"):  # K8 takes D up to 256
+        fa.flash_attention(*(torch.zeros((1, 1, 8, 264), device=dev),) * 3)
     with pytest.raises(ValueError, match="shared memory"):
         so.ssd(torch.zeros((1, 8, 1, 64), device=dev), dt[:, :8, :1], a[:1],
                torch.zeros((1, 8, 128), device=dev), torch.zeros((1, 8, 128), device=dev),
@@ -851,3 +854,96 @@ def test_guarded_refuses_the_plain_fallback_on_the_card(dev):
         ("knm_quadratic", None)]
     assert kernels.launch_counts()["falkon_matvec"] == 2
     health.clear_events()
+
+
+# -- gradients through K8 and K9, training, and BLESS-Nystrom attention on the card ----------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [(1, 4, 2, 300, 64, True), (2, 8, 1, 129, 256, True),
+                                                  (1, 4, 4, 200, 200, False)])
+def test_flash_attention_gradient_is_the_plain_versions(dev, dtype, b, hq, hkv, s, d, causal):
+    from repro_torch.kernels import flash_attention_ops as fa
+
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dtype).requires_grad_(True)
+               for h in (hq, hkv, hkv))
+    go = torch.randn((b, hq, s, d), generator=g, device=dev).to(dtype)
+    kernels.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    assert kernels.plain_counts()["flash_attention"] == {"cuda_calls": 1,
+                                                         "backward_recomputes": 1}
+    want = torch.autograd.grad(fa.flash_attention_reference(q, k, v, causal=causal), (q, k, v), go)
+    for a, w in zip(got, want):  # the same function, recomputed: the same bits
+        assert a.dtype == dtype and torch.equal(a, w)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    ref = fa.flash_attention_reference(q, k, v, causal=causal).float()
+    _close(out.float(), ref, tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_is_the_plain_versions(dev, dtype):
+    from repro_torch.kernels import ssd_ops as so
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 200, 4, 32), generator=g, device=dev).to(dtype).requires_grad_(True)
+    dt = torch.nn.functional.softplus(torch.randn((2, 200, 4), generator=g, device=dev))
+    a = -torch.exp(0.3 * torch.randn((4,), generator=g, device=dev))
+    bm, cm = ((0.5 * torch.randn((2, 200, 128), generator=g, device=dev)).to(dtype)
+              for _ in range(2))
+    ins = [t.requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    gy = torch.randn((2, 200, 4, 32), generator=g, device=dev).to(dtype)
+    kernels.reset_launch_counts()
+    y, _ = so.ssd(*ins, chunk=64)
+    got = torch.autograd.grad(y, ins, gy)
+    assert kernels.launch_counts()["ssd"] == 1
+    assert kernels.plain_counts()["ssd"] == {"cuda_calls": 1, "backward_recomputes": 1}
+    want = torch.autograd.grad(so.ssd_reference(*ins, chunk=64)[0], ins, gy)
+    for a_, w in zip(got, want):
+        assert torch.equal(a_, w)
+
+
+def test_a_train_step_on_the_card_matches_the_cpus_and_runs_the_kernels(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim import OptConfig
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg = dataclasses.replace(smoke(get_config("jamba-v0.1-52b")), dtype="float32",
+                              capacity_factor=16.0)
+    lm_cpu = LM(cfg, seed=4, device="cpu")
+    lm = LM(cfg, seed=4, device="cpu").to(dev)
+    opt = OptConfig(peak_lr=1e-3, warmup=0)
+    pipe = SyntheticLM(cfg.vocab_size, 2, 128, seed=1, device="cpu")
+    states = [train_state_init(lm), train_state_init(lm_cpu)]
+    steps = [make_train_step(lm, opt, loss_chunks=4), make_train_step(lm_cpu, opt, loss_chunks=4)]
+    for i in range(2):
+        b = pipe.batch_at(i)
+        kernels.reset_launch_counts()
+        states[0], m = steps[0](states[0], {k: v.to(dev) for k, v in b.items()})
+        counts, plain = kernels.launch_counts(), kernels.plain_counts()
+        states[1], mc = steps[1](states[1], b)
+        assert abs(float(m["loss"]) - float(mc["loss"])) <= 1e-4 * float(mc["loss"])
+        # one attention and seven Mamba layers, each twice (the remat recompute)
+        assert counts["flash_attention"] == 2 and counts["ssd"] == 14
+        assert all(c["cuda_calls"] == c["backward_recomputes"] for c in plain.values())
+
+
+def test_nystrom_attention_on_the_card_matches_the_cpu(dev):
+    from repro_torch.models import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((1, 2048, 8, 256), generator=g, device=dev)
+    k, v = (torch.randn((1, 2048, 1, 256), generator=g, device=dev) for _ in range(2))
+    out = attn.nystrom_attention(q, k, v, landmarks=256)
+    ref = attn.nystrom_attention(q.cpu(), k.cpu(), v.cpu(), landmarks=256).to(dev)
+    _close(out, ref, 1e-3 * float(ref.abs().max()))
+    kc, vc = attn.bless_compress_cache(k, v, 256)
+    kr, vr = attn.bless_compress_cache(k.cpu(), v.cpu(), 256)
+    assert ({tuple(r) for r in kc[0, :, 0].cpu().tolist()}
+            == {tuple(r) for r in kr[0, :, 0].tolist()})

@@ -84,7 +84,8 @@ def _carried(name, layers_=None, **kw):
 
 
 ATTN_SHAPES = [(4, 4, 256, 128, True), (8, 2, 300, 64, True), (8, 1, 512, 80, True),
-               (4, 4, 300, 64, False), (2, 2, 128, 128, False)]
+               (4, 4, 300, 64, False), (2, 2, 128, 128, False), (8, 1, 200, 256, True),
+               (2, 2, 130, 256, False), (4, 2, 150, 200, True)]
 
 
 @pytest.mark.parametrize("hq,hkv,s,d,causal", ATTN_SHAPES)
@@ -96,6 +97,16 @@ def test_plain_flash_attention_matches_reference_kernel(hq, hkv, s, d, causal):
     _close(out, jax_fa.flash_attention(jq, jk, jv, causal=causal, bq=128, bk=128,
                                        interpret=True), 2e-5)
     _close(out, jax_fa.flash_attention_reference(jq, jk, jv, causal=causal), 2e-5)
+
+
+def test_k8_takes_head_dims_up_to_256():
+    # gemma-2b's heads are 256 wide (the reference's wrapper takes any D)
+    assert fa.MAX_D == 256 == configs.get_config("gemma-2b").head_dim
+    src = (REPO / "src/repro_torch/kernels/flash_attention/flash_attention.cu").read_text()
+    # each dispatch has a 256-wide tile and refuses (throws) past it
+    assert "launch<16>" in src and "launch_mma<256>" in src
+    assert src.count("default: throw std::invalid_argument") == 2
+    assert "q.size(3) <= 256" in (REPO / "src/repro_torch/kernels/csrc/binding.cpp").read_text()
 
 
 def test_plain_flash_attention_bf16_matches_reference_kernel():
@@ -503,8 +514,15 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     lm = LM(tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(lm, max_len=8, batch_slots=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LM(dataclasses.replace(tcfg, attention_impl="bless_nystrom"), device="cpu")
+    # BLESS-Nystrom attention builds and runs (it raised NotImplementedError
+    # before the port had it): on the CPU when asked, and it too needs a card
+    # by default
+    nys = dataclasses.replace(tcfg, attention_impl="bless_nystrom")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(nys)
+    toks = torch.from_numpy(_tokens(nys, 1, 2 * nys.nystrom_landmarks))
+    assert bool(torch.all(torch.isfinite(prefill_logits(LM(nys, device="cpu"),
+                                                        {"tokens": toks}))))
 
 
 def test_cpu_forward_launches_no_kernel():
