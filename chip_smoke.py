@@ -5,6 +5,8 @@ serving path, BLESS-Nystrom attention in gemma-2b, and LM training (gemma-2b,
 mamba2-370m) on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
+    python3 chip_smoke.py --phase serve [--tree DIR]   # one phase alone (of DIR's
+                                     # checkout: an A/B of two commits on one card)
 
 Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
 
@@ -191,7 +193,7 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 bless_compress_cache of that layer's k, v to 1 024 rows: the
                 CPU's selection; its time logged.
  15. train      repro_torch.training on SyntheticLM batches, AdamW (cosine,
-                one warmup step, clip 1.0), counts reset before each
+                three warmup steps, clip 1.0), counts reset before each
                 step. (a) gemma-2b, full width and depth, bf16, remat, 6
                 steps of 2 x 2 048 tokens (8 loss chunks), peak lr 5e-4;
                 (d) the state saved with repro_torch.checkpoint, a 7th step at
@@ -224,6 +226,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import math
 import pathlib
@@ -2638,14 +2641,20 @@ def nystrom(device, cfg=None, *, prompt: int = 8192, repeats: int = 2, seed: int
     return res
 
 
-#: phase 15: each trainer's peak learning rate (cosine, one warmup step, 100
-#: steps; the issue's range is 3e-4 to 3e-3) and the gradient clip. AdamW's
-#: first steps move every parameter by about the lr, whatever its gradient.
-#: In this phase on the card, gemma-2b's loss over six steps went 12.837 ...
-#: 12.765, 12.813, 12.879 at 1e-3 (its 2.5 B parameters drift, and the loss
-#: rises after the fourth step), jumped to 13.82 at the sixth at 2e-3, and
-#: fell to 12.760 at 5e-4; mamba2-370m's went from 11.217 to 11.191 at 1e-3.
+#: phase 15: each trainer's peak learning rate (cosine, ``TRAIN_WARMUP``
+#: warmup steps, 100 steps; chosen within 3e-4 to 3e-3) and the gradient
+#: clip. AdamW's first steps move every parameter by about the lr, whatever
+#: its gradient. In this phase on the card with one warmup step, gemma-2b's
+#: loss over six steps went 12.837 ... 12.765, 12.813, 12.879 at 1e-3 (its
+#: 2.5 B parameters drift, and the loss rises after the fourth step), jumped
+#: to 13.82 at the sixth at 2e-3, and fell to 12.760 at 5e-4; with three
+#: warmup steps it fell to 12.741 at 5e-4, and mamba2-370m's from 11.217 to
+#: 11.189 at 1e-3.
 TRAIN_PEAK_LR = {"gemma-2b": 5e-4, "mamba2-370m": 1e-3}
+#: warmup steps: the lr climbs over steps 1-3, so the first steps (whose
+#: AdamW moves are about the lr on every parameter, whatever its gradient)
+#: are not full-lr moves of the random parameters.
+TRAIN_WARMUP = 3
 TRAIN_CLIP = 1.0
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
@@ -2654,7 +2663,7 @@ TRAIN_LOSS_RTOL = 1e-4
 def _opt_config(peak_lr: float):
     from repro_torch.optim import OptConfig
 
-    return OptConfig(peak_lr=peak_lr, warmup=1, total_steps=100, schedule="cosine",
+    return OptConfig(peak_lr=peak_lr, warmup=TRAIN_WARMUP, total_steps=100, schedule="cosine",
                      clip_norm=TRAIN_CLIP)
 
 
@@ -2853,14 +2862,52 @@ def train(device, *, seed: int = 0, gemma=None, mamba=None, gemma_shape=(2, 2048
 # ---------------------------------------------------------------------------
 
 
+#: the phases ``--phase`` runs alone (each a function of this script).
+ALONE = ("serve", "train")
+
+
+def run_alone(names, tree: str | None, seed: int) -> int:
+    """Only the phases ``names`` (no kernel record, no contract line), from
+    this script or, with ``tree``, from the chip_smoke.py of that checkout
+    with its own ``src`` (another commit unpacked by ``git archive``): each
+    process runs one side of an A/B on the same card."""
+    mod = sys.modules[__name__]
+    if tree:
+        path = pathlib.Path(tree).resolve() / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke_tree", path)
+        mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)  # puts that tree's src first on sys.path
+    try:
+        mod.probe()
+        for name in names:
+            t0 = time.perf_counter()
+            res = getattr(mod, name)("cuda", seed=seed)
+            keep = {k: v for k, v in res.items() if k in ("decode_ms_per_step",
+                                                          "prefill_tokens_per_s", "add_request_s")}
+            log(f"alone {name} ({tree or 'this tree'}): {time.perf_counter() - t0:.1f} s "
+                f"{json.dumps(keep)}")
+    except mod.PhaseError as e:
+        print(f"chip_smoke: FAIL {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the data and the centers")
+    ap.add_argument("--phase", action="append", choices=ALONE,
+                    help="run only this phase (repeatable); no kernel record or contract line")
+    ap.add_argument("--tree", help="with --phase: the checkout whose chip_smoke.py and src run "
+                    "the phases (to compare two commits on one card)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.tree and not args.phase:
+        ap.error("--tree needs --phase")
+    if args.phase:
+        return run_alone(args.phase, args.tree, args.seed)
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:

@@ -515,20 +515,37 @@ def _sharded(n: int | None) -> bool:
             and world(data_group())[1] > 1)
 
 
+def _plain(be: Backend | None) -> bool:
+    """True if ``be`` is, or wraps through ``inner``, the plain ``TorchBackend``."""
+    while be is not None:
+        if isinstance(be, TorchBackend):
+            return True
+        be = getattr(be, "inner", None)
+    return False
+
+
 def _env_backend(device: torch.device | str | None, n: int | None) -> Backend | None:
     """The backend ``REPRO_BACKEND`` names (None when unset, empty or
     "auto"): a registered name or an ``"outer:inner"`` spec, resolved by
     ``resolve_backend``; anything else raises a ``ValueError`` naming the
-    variable, as the reference's ``default_backend`` does."""
+    variable, as the reference's ``default_backend`` does. So does a spec
+    that puts the plain ``TorchBackend`` under data on the card (``device``
+    None or CUDA): no environment variable selects a plain version there."""
     env = os.environ.get("REPRO_BACKEND", "").strip().lower()
     if not env or env == "auto":
         return None
     from .gram import resolve_backend
 
     try:
-        return resolve_backend(env, device=device, n=n)
+        picked = resolve_backend(env, device=device, n=n)
     except ValueError as e:
         raise ValueError(f"REPRO_BACKEND={env!r}: {e}; or 'auto'") from None
+    if torch.device("cuda" if device is None else device).type == "cuda" and _plain(picked):
+        raise ValueError(
+            f"REPRO_BACKEND={env!r} puts the plain TorchBackend under data on the card; "
+            "it serves data on the CPU only (use 'cuda', 'stream', 'sharded', 'guarded' "
+            "or 'auto' there)")
+    return picked
 
 
 def default_backend(device: torch.device | str | None = None, *,
@@ -540,7 +557,9 @@ def default_backend(device: torch.device | str | None = None, *,
     edits: a registered name (``torch``, ``cuda``, ``sharded``, ``guarded``,
     ``stream``) or a composite spec (``"stream:cuda"``); ``""`` and
     ``"auto"`` fall through to the rules below, any other value raises
-    ``ValueError``. A ``backend=`` the caller passes wins over it (this
+    ``ValueError``, as does ``torch`` (alone or as an inner, as in
+    ``"stream:torch"``) for data on the card, which only the CPU's data
+    runs on. A ``backend=`` the caller passes wins over it (this
     function runs only when none is given). ``GuardedBackend`` is chosen
     only by this variable or by name, never by the rules.
 

@@ -31,6 +31,13 @@ def require_cuda(t: torch.Tensor, name: str,
     return t.contiguous()
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """A gradient is being taken through one of ``tensors`` (grad mode on and
+    one requires it): only then does a wrapper enter its
+    ``autograd.Function``; serving calls the forward directly."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def is_cpu(*tensors: torch.Tensor) -> bool:
     """True if every tensor lies on the CPU (the wrappers then run the plain
     version); False if every one lies on a CUDA device. Mixed devices raise."""

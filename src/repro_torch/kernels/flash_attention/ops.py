@@ -31,7 +31,7 @@ import math
 import torch
 
 from .. import build
-from ..common import is_cpu, require_cuda
+from ..common import is_cpu, needs_grad, require_cuda
 from .ref import CHUNK, attention_ref
 
 #: the largest head dim the kernel takes.
@@ -97,7 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise NotImplementedError("K8 has no logit softcap; no configuration sets one")
     if q.shape[3] > MAX_D:
         raise ValueError(f"K8 takes a head dim of at most {MAX_D}, got {q.shape[3]}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
     return _launch(q, k, v, causal)
 

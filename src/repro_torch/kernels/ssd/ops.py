@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .. import build
-from ..common import is_cpu, require_cuda
+from ..common import is_cpu, needs_grad, require_cuda
 from .ref import ssd_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -152,7 +152,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: 
         return ssd_ref(x, dt, a, b, c, chunk=chunk)
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+    if needs_grad(x, dt, a, b, c):
         return _Ssd.apply(x, dt, a, b, c, chunk)
     return _launch(x, dt, a, b, c, chunk)
 

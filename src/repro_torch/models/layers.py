@@ -5,7 +5,10 @@ reference's (in, out) layout, so a layer computes ``x @ w`` and weights carry
 across unchanged (``repro_torch.interop``). ``rms_norm`` and ``lowp`` are
 ``torch.autograd.Function``s with the reference's custom VJPs: rms_norm's dx
 comes back in x's dtype and its dgamma is the sum over all rows in gamma's;
-``lowp`` is the identity whose cotangent is cast to the forward dtype.
+``lowp`` is the identity whose cotangent is cast to the forward dtype. As
+the K8 and K9 wrappers, each enters its Function only when a gradient is
+taken (grad mode on and an input that requires one); serving and decode
+call the plain forward.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..kernels.common import needs_grad
 
 
 # --- init ------------------------------------------------------------------
@@ -45,15 +50,20 @@ def param(t: torch.Tensor) -> nn.Parameter:
 # --- norms -----------------------------------------------------------------
 
 
+def _rms_fwd(x: torch.Tensor, gamma: torch.Tensor, eps: float):
+    xf = x.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * inv * (1.0 + gamma.float())).to(x.dtype), inv
+
+
 class _RmsNorm(torch.autograd.Function):
     """The reference's ``_rms_fwd`` / ``_rms_bwd``."""
 
     @staticmethod
     def forward(ctx, x, gamma, eps):
-        xf = x.float()
-        inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        y, inv = _rms_fwd(x, gamma, eps)
         ctx.save_for_backward(x, gamma, inv)
-        return (xf * inv * (1.0 + gamma.float())).to(x.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
@@ -70,7 +80,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     """RMSNorm with a (1 + gamma) gain, fp32 inside, x's dtype out; its
     gradient dx is cast back to x's dtype (the reference's low-precision
     gradient boundary)."""
-    return _RmsNorm.apply(x, gamma, eps)
+    if needs_grad(x, gamma):
+        return _RmsNorm.apply(x, gamma, eps)
+    return _rms_fwd(x, gamma, eps)[0]
 
 
 class _Lowp(torch.autograd.Function):
@@ -89,7 +101,7 @@ class _Lowp(torch.autograd.Function):
 def lowp(x: torch.Tensor) -> torch.Tensor:
     """Identity whose gradient is cast to x's dtype (the reference's
     low-precision gradient boundary on the q/k/v projections)."""
-    return _Lowp.apply(x)
+    return _Lowp.apply(x) if needs_grad(x) else x
 
 
 # --- rotary ----------------------------------------------------------------

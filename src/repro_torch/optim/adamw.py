@@ -59,16 +59,20 @@ def global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor], state: dict,
-                 cfg: OptConfig) -> tuple[dict[str, torch.Tensor], dict]:
+                 cfg: OptConfig, *, grad_norm: torch.Tensor | None = None
+                 ) -> tuple[dict[str, torch.Tensor], dict]:
     """One AdamW step from ``grads`` (any float dtype; keyed as ``params``).
     Updates ``state``'s master, mu and nu and ``params`` in place (params
     get the master cast to their dtype) and returns (params, state) with
-    the step advanced."""
+    the step advanced. ``grad_norm`` is ``global_norm(grads)`` when the
+    caller has it already (one pass over the gradients fewer)."""
     step = state["step"] + 1
     stepf = step.to(torch.float32)
     dev = next(iter(state["master"].values())).device
     lr = cfg.lr(step).to(dev)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(global_norm(grads), min=1e-9), max=1.0)
+    if grad_norm is None:
+        grad_norm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(grad_norm, min=1e-9), max=1.0)
     c1 = (1 - torch.tensor(cfg.b1, dtype=torch.float32) ** stepf).to(dev)
     c2 = (1 - torch.tensor(cfg.b2, dtype=torch.float32) ** stepf).to(dev)
     for k, p in params.items():

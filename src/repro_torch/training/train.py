@@ -123,7 +123,7 @@ def make_train_step(cfg_or_lm: ArchConfig | LM, opt_cfg: OptConfig, *, microbatc
             for t in grads.values():
                 t.div_(microbatches)
         gnorm = global_norm(grads)
-        params, opt = adamw_update(state.params, grads, state.opt, opt_cfg)
+        params, opt = adamw_update(state.params, grads, state.opt, opt_cfg, grad_norm=gnorm)
         metrics = {"loss": loss, "lr": opt_cfg.lr(opt["step"]), "grad_norm": gnorm}
         return TrainState(params, opt), metrics
 

@@ -27,7 +27,7 @@ from repro.runtime import compress as jcompress
 from repro_torch import core
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.core import CudaBackend, TorchBackend
-from repro_torch.core.backend import SHARD_MIN_ROWS, GuardedBackend, _sharded
+from repro_torch.core.backend import SHARD_MIN_ROWS, GuardedBackend, _plain, _sharded
 from repro_torch.runtime import (FaultTolerantLoop, HeartbeatMonitor, compressed_allreduce_int8,
                                  compressed_psum_bf16, ef_state_init, int8_compress,
                                  int8_decompress)
@@ -255,6 +255,21 @@ def test_repro_backend_takes_a_composite_spec(monkeypatch):
     monkeypatch.setenv("REPRO_BACKEND", "stream:torch")
     be = core.default_backend("cpu", n=10)
     assert isinstance(be, StreamBackend) and isinstance(be.inner, TorchBackend)
+
+
+@pytest.mark.parametrize("value", ["torch", "stream:torch", " Stream:Torch"])
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_repro_backend_never_puts_the_plain_backend_under_card_data(monkeypatch, value, device):
+    monkeypatch.setenv("REPRO_BACKEND", value)
+    with pytest.raises(ValueError, match="REPRO_BACKEND.*plain TorchBackend"):
+        core.default_backend(device)
+    with pytest.raises(ValueError, match="REPRO_BACKEND"):
+        core.resolve_backend(None, device=device, n=10)
+    # the CPU's data still takes it, and the card's takes the kernels' backends
+    assert _plain(core.default_backend("cpu"))
+    for kernels in ("cuda", "stream", "stream:cuda", "guarded", "sharded"):
+        monkeypatch.setenv("REPRO_BACKEND", kernels)
+        assert not _plain(core.default_backend(device))
 
 
 @pytest.mark.parametrize("value", ["", "auto", "AUTO"])

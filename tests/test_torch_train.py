@@ -136,6 +136,21 @@ def test_rms_norm_and_lowp_gradients_match_jax_vjp(dtype, shape):
     np.testing.assert_array_equal(_np(tcast), _np(jcast))
 
 
+def test_rms_norm_and_lowp_enter_their_functions_only_for_a_gradient():
+    r = _rng(4)
+    x = torch.from_numpy(r.standard_normal((3, 8)).astype(np.float32)).to(torch.bfloat16)
+    gamma = torch.from_numpy((0.1 * r.standard_normal(8)).astype(np.float32)).to(torch.bfloat16)
+    plain = layers.rms_norm(x, gamma)  # nothing requires a gradient
+    assert plain.grad_fn is None and layers.lowp(x) is x
+    xg = x.clone().requires_grad_(True)
+    taped = layers.rms_norm(xg, gamma)
+    assert type(taped.grad_fn).__name__ == "_RmsNormBackward"
+    assert type(layers.lowp(xg).grad_fn).__name__ == "_LowpBackward"
+    assert torch.equal(taped.detach(), plain)  # one forward value either way
+    with torch.no_grad():
+        assert layers.rms_norm(xg, gamma).grad_fn is None and layers.lowp(xg) is xg
+
+
 # -- loss_fn and its gradient -----------------------------------------------------------------
 
 
@@ -268,6 +283,28 @@ def test_adamw_keeps_bf16_params_and_fp32_state():
     assert params["w"].dtype == torch.bfloat16
     assert torch.equal(params["w"], st_["master"]["w"].to(torch.bfloat16))
     assert float(global_norm({"w": torch.full((4,), 0.5)})) == 1.0
+
+
+def test_adamw_update_with_its_norm_given_takes_the_same_step():
+    r = _rng(11)
+    shapes = {"a": (5, 3), "b": (7,)}
+    cfg = OptConfig(peak_lr=1e-2, warmup=2, total_steps=10, clip_norm=0.5)
+    params = {k: torch.from_numpy(r.standard_normal(s).astype(np.float32)) for k, s in shapes.items()}
+    runs = []
+    for norm in (None, global_norm, lambda g: global_norm(g) * (step + 2)):
+        p = {k: v.clone() for k, v in params.items()}
+        st_ = adamw_init(p)
+        for step in range(3):
+            g = {k: torch.from_numpy(_rng(step).standard_normal(s).astype(np.float32) * 4)
+                 for k, s in shapes.items()}
+            p, st_ = adamw_update(p, g, st_, cfg, grad_norm=None if norm is None else norm(g))
+        runs.append((p, st_))
+    (p0, s0), (p1, s1), (p2, _) = runs
+    for k in shapes:
+        assert torch.equal(p0[k], p1[k])
+        assert all(torch.equal(s0[n][k], s1[n][k]) for n in ("master", "mu", "nu"))
+    # the norm given is the one that clips
+    assert not all(torch.equal(p0[k], p2[k]) for k in shapes)
 
 
 @pytest.mark.parametrize("name,kw", [("cosine", dict(peak_lr=1.0, warmup=10, total=100)),
