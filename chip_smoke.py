@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
 KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
-serving path, BLESS-Nystrom attention in gemma-2b, and LM training (gemma-2b,
-mamba2-370m) on one H100.
+serving path, BLESS-Nystrom attention in gemma-2b, LM training (gemma-2b,
+mamba2-370m), the training launcher and GPipe on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
-    python3 chip_smoke.py --phase serve [--tree DIR]   # one phase alone (of DIR's
+    python3 chip_smoke.py --phase serve|train|launch [--tree DIR]   # one phase alone (of DIR's
                                      # checkout: an A/B of two commits on one card)
 
 Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
@@ -208,6 +208,31 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 of each, cut to 2 layers, B = 1, S = 256, on the card against
                 the CPU: loss within 1e-4 relative, each gradient within
                 1e-3 of its max|g|.
+ 16. launch     mamba2-370m at full width and depth (48 layers, bf16, K9 in
+                every layer). (a) `python -m repro_torch.launch.train --steps
+                8 --batch 4 --seq 2048 --ckpt-every 4 --log-every 1` as a
+                subprocess into D1; again into D2, SIGKILLed once step 4's
+                checkpoint has committed, and relaunched with the same
+                flags. Gates: the relaunch restores at step 4; every
+                logged step's loss and grad norm finite; K9 launched twice
+                per layer and step (remat; each launcher resets its counts
+                before a step and logs them); the step-8 checkpoints of D1
+                and D2 the same bits, every tensor of params and optimizer
+                state. Printed: tokens/s, median step, stragglers, save and
+                restore times, and beside them the dry run's per-rank bytes
+                of the cell on a mesh of one rank and the launcher's
+                torch.cuda.max_memory_allocated. (b) GPipe over two gloo
+                ranks sharing the card (subprocesses, file:// rendezvous),
+                24 / 24 blocks of the model in fp32 built from --seed on
+                each rank, 4 microbatches of (1, 1 024) tokens of
+                SyntheticLM embeddings, loss = sum(out^2). Gates: the output
+                within 1e-5 and each stage param's gradient within 1e-4,
+                relative to the largest value, of the 48 blocks run in
+                sequence, microbatch by microbatch, in this process; each
+                rank's CollectiveMeter bytes the count from the shapes
+                ((S + M - 1) activations handed on forward and again
+                backward, one (M, 1, 1 024, d) buffer summed); K9 launched
+                in every block of every step on each rank.
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -229,7 +254,9 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -2860,10 +2887,382 @@ def train(device, *, seed: int = 0, gemma=None, mamba=None, gemma_shape=(2, 2048
 
 
 # ---------------------------------------------------------------------------
+# 16. the launch package: the launcher killed and resumed, GPipe on the card
+# ---------------------------------------------------------------------------
+
+#: phase 16's model: the launcher and the pipeline run it at full width and
+#: depth (48 layers, K9 in every one).
+LAUNCH_ARCH = "mamba2-370m"
+#: phase 16 (b): the pipeline's output and its stage params' gradients
+#: against the same blocks run in sequence (tests/test_pipeline.py's
+#: tolerances), relative to the largest value.
+PIPE_OUT_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
+
+_STEP_RE = re.compile(r"step (\d+) loss (\S+) lr (\S+) gnorm (\S+) launches (\{.*\})")
+
+
+def _launcher_log(text: str) -> dict:
+    """The launcher's log lines, parsed: per-step records, the restore, the
+    checkpoints' times, the peak device memory and the ``done`` line."""
+    steps = [{"step": int(m[1]), "loss": float(m[2]), "lr": float(m[3]),
+              "grad_norm": float(m[4]), "launches": json.loads(m[5])}
+             for m in _STEP_RE.finditer(text)]
+    out = {"steps": steps, "restored": None, "restore_s": None, "checkpoints": [],
+           "peak_bytes": None, "done": None, "ready_s": None}
+    if m := re.search(r"ready to step in (\S+)s", text):
+        out["ready_s"] = float(m[1])
+    if m := re.search(r"restored checkpoint at step (\d+) in (\S+)s", text):
+        out["restored"], out["restore_s"] = int(m[1]), float(m[2])
+    if m := re.search(r"checkpoints: (\[.*\])", text):
+        out["checkpoints"] = json.loads(m[1])
+    if m := re.search(r"peak device memory: (\d+) B", text):
+        out["peak_bytes"] = int(m[1])
+    if m := re.search(r"done: (\S+)s, (\S+) tok/s, median step (\S+)s, (\d+) stragglers", text):
+        out["done"] = {"s": float(m[1]), "tokens_per_s": float(m[2]),
+                       "median_step_s": float(m[3]), "stragglers": int(m[4])}
+    return out
+
+
+def _same_checkpoint(a: pathlib.Path, b: pathlib.Path) -> tuple[int, list[str]]:
+    """(leaves, keys whose stored bits differ) of two checkpoints."""
+    import numpy as np
+
+    ma = json.loads((a / "manifest.json").read_text())["leaves"]
+    mb = json.loads((b / "manifest.json").read_text())["leaves"]
+    differ = sorted(set(ma) ^ set(mb))
+    for key in sorted(set(ma) & set(mb)):
+        x, y = np.load(a / ma[key]["file"]), np.load(b / mb[key]["file"])
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            differ.append(key)
+    return len(ma), differ
+
+
+def launcher_run(device, cfg, *, steps: int = 8, batch: int = 4, seq: int = 2048,
+                 ckpt_every: int = 4, smoke: bool = False, timeout: float = 600.0) -> dict:
+    """Phase 16 (a): ``python -m repro_torch.launch.train`` on ``cfg``, as a
+    subprocess: once uninterrupted into D1; once into D2, SIGKILLed as soon
+    as step ``ckpt_every``'s checkpoint has committed (its manifest is on
+    disk), and relaunched with the same flags. Gates: the relaunch restores
+    at step ``ckpt_every``; every logged step's loss and grad norm finite;
+    on the card K9 (K8) launched in every Mamba (attention) layer of every
+    forward (twice a step under remat: the backward recomputes each layer);
+    the last checkpoints of D1 and D2 the same bits, every tensor of params
+    and optimizer state. Beside them: the dry run's per-rank bytes of this
+    cell on a mesh of one rank and the launcher's peak device memory."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.launch.specs import train_specs
+    from repro_torch.sharding import MeshCtx, MeshShape
+
+    on_card = torch.device(device).type == "cuda"
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    want = {"flash_attention": n_attn, "ssd": cfg.n_layers - n_attn}
+    want = {k: v * (2 if cfg.remat else 1) for k, v in want.items() if v}
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    bad, runs = [], {}
+
+    def cmd(d):
+        return ([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 cfg.name.removesuffix("-smoke"), "--steps", str(steps), "--batch", str(batch),
+                 "--seq", str(seq), "--ckpt-every", str(ckpt_every), "--ckpt-dir", str(d),
+                 "--log-every", "1", "--device", str(device)] + (["--smoke"] if smoke else []))
+
+    def run(name, d):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd(d), env=env, capture_output=True, text=True, timeout=timeout)
+        runs[name] = {**_launcher_log(out.stderr + out.stdout), "rc": out.returncode,
+                      "wall_s": time.perf_counter() - t0}
+        if out.returncode != 0:
+            raise PhaseError(f"launch: the {name} run exited {out.returncode}:\n"
+                             f"{(out.stderr + out.stdout)[-3000:]}")
+
+    try:
+        d1, d2 = tmp / "D1", tmp / "D2"
+        run("uninterrupted", d1)
+        # drop D1's earlier checkpoints: only its last is compared
+        for p in d1.glob("step_*"):
+            if p.name != f"step_{steps:08d}":
+                shutil.rmtree(p)
+        t0 = time.perf_counter()
+        with open(tmp / "killed.log", "w") as f:
+            proc = subprocess.Popen(cmd(d2), env=env, stdout=f, stderr=subprocess.STDOUT)
+            marker = d2 / f"step_{ckpt_every:08d}" / "manifest.json"
+            while proc.poll() is None and not marker.exists():
+                if time.perf_counter() - t0 > timeout:
+                    proc.kill()
+                    raise PhaseError(f"launch: no step-{ckpt_every} checkpoint in {timeout} s")
+                time.sleep(0.02)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        killed = {**_launcher_log((tmp / "killed.log").read_text()), "rc": proc.returncode,
+                  "wall_s": time.perf_counter() - t0,
+                  "latest_at_kill": max((int(p.name[5:]) for p in d2.glob("step_*")
+                                         if not p.name.endswith(".tmp")), default=None)}
+        runs["killed"] = killed
+        if proc.returncode != -signal.SIGKILL:
+            bad.append(f"the second run ended with {proc.returncode}, not by SIGKILL")
+        run("relaunched", d2)
+        n_leaves, differ = _same_checkpoint(d1 / f"step_{steps:08d}", d2 / f"step_{steps:08d}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if runs["relaunched"]["restored"] != ckpt_every:
+        bad.append(f"the relaunch restored step {runs['relaunched']['restored']}, "
+                   f"not {ckpt_every}")
+    launches = {n: 0 for n in LM_KERNELS}
+    for name, r in runs.items():
+        for rec in r["steps"]:
+            if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+                bad.append(f"{name} step {rec['step']}: loss {rec['loss']}, "
+                           f"grad_norm {rec['grad_norm']}")
+            for n in LM_KERNELS:
+                launches[n] += rec["launches"].get(n, 0)
+            if on_card:
+                for n, w in want.items():
+                    if rec["launches"].get(n, 0) < w:
+                        bad.append(f"{name} step {rec['step']}: {n} launched "
+                                   f"{rec['launches'].get(n, 0)} times, not {w}")
+    logged = [r["step"] for r in runs["uninterrupted"]["steps"]]
+    if logged != list(range(1, steps + 1)):
+        bad.append(f"the uninterrupted run logged steps {logged}")
+    if [r["step"] for r in runs["relaunched"]["steps"]] != list(range(ckpt_every + 1, steps + 1)):
+        bad.append(f"the relaunch logged steps {[r['step'] for r in runs['relaunched']['steps']]}")
+    if differ:
+        bad.append(f"D1 and D2's step-{steps} checkpoints differ in {len(differ)} of "
+                   f"{n_leaves} leaves: {differ[:5]}")
+    _, args = train_specs(cfg, batch, seq, MeshCtx(mesh=MeshShape(("data", "model"), (1, 1))))
+    dry = state_bytes(args, "train")
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "steps": steps, "batch": batch, "seq": seq, "ckpt_every": ckpt_every,
+           "runs": {k: {kk: vv for kk, vv in v.items() if kk != "steps"} for k, v in runs.items()},
+           "losses": [r["loss"] for r in runs["uninterrupted"]["steps"]],
+           "losses_relaunched": [r["loss"] for r in runs["relaunched"]["steps"]],
+           "leaves": n_leaves, "bit_identical": not differ,
+           "dryrun_bytes_per_rank": {**dry, "total": sum(dry.values())},
+           "launches": launches}
+    log(f"launch (a) {cfg.name}: {json.dumps(res)}")
+    if bad:
+        raise PhaseError("launch (a) failed: " + "; ".join(bad))
+    return res
+
+
+def pipeline_config(**overrides):
+    """Phase 16 (b)'s model: ``LAUNCH_ARCH`` in fp32 (the reference test's dtype)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LAUNCH_ARCH), dtype="float32", **overrides)
+
+
+def _stage(blocks, h):
+    """One pipeline stage: the blocks in order on one microbatch (B, S, d)."""
+    positions = torch.arange(h.shape[1], device=h.device).expand(h.shape[0], h.shape[1])
+    for blk in blocks:
+        h = blk(h, positions, None)
+    return h
+
+
+def gpipe_rank(rank: int, world: int, tmp: str, device: str, cfg_overrides: dict,
+               seed: int) -> None:
+    """One rank of phase 16 (b), in its own process: a gloo group on
+    ``tmp``'s file, the model from ``seed`` on ``device``, its stage's
+    blocks (an equal share of the layers, in order), the pipelined forward
+    and backward of loss = sum(out^2) under a ``CollectiveMeter``; writes
+    ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+    from repro_torch.launch.roofline import CollectiveMeter
+    from repro_torch.models import LM
+    from repro_torch.training import pipeline_apply
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world)
+    try:
+        cfg = pipeline_config(**cfg_overrides)
+        per = cfg.n_layers // world
+        lm = LM(cfg, seed=seed, device=device)
+        blocks = lm.layers[rank * per:(rank + 1) * per].requires_grad_(True)
+        x = torch.load(f"{tmp}/inputs.pt")["x"].to(device)
+        run = pipeline_apply(_stage, world, x.shape[0], dist.group.WORLD)
+        # a first step warms the process (cuBLAS, the plain backward's first
+        # calls); the second, from zero gradients, is the one timed and read
+        t0 = time.perf_counter()
+        torch.sum(run(blocks, x) ** 2).backward()
+        sync(device)
+        first_s = time.perf_counter() - t0
+        blocks.zero_grad(set_to_none=True)
+        dist.barrier()
+        kernels.reset_launch_counts()
+        with CollectiveMeter() as meter:
+            t0 = time.perf_counter()
+            out = run(blocks, x)
+            torch.sum(out ** 2).backward()
+            sync(device)
+            step_s = time.perf_counter() - t0
+        torch.save({"out": out.detach().cpu(), "step_s": step_s, "first_s": first_s,
+                    "grads": {k: p.grad.cpu() for k, p in blocks.named_parameters()},
+                    "bytes": meter.bytes, "calls": meter.calls,
+                    "launches": kernels.launch_counts(), "plain": kernels.plain_counts()},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] = (1, 1024),
+          seed: int = 0, cfg_overrides: dict | None = None, timeout: float = 600.0) -> dict:
+    """Phase 16 (b): GPipe over ``world`` ranks sharing the one card
+    (subprocesses, ``file://`` rendezvous, gloo), each holding an equal
+    share of the model's blocks built from one seed; fp32, ``microbatches``
+    microbatches of ``mb`` (B, S) tokens of ``SyntheticLM`` embeddings, loss
+    = sum(out^2). Gates: the pipelined output within PIPE_OUT_TOL and each
+    stage param's gradient within PIPE_GRAD_TOL, relative to the largest
+    value, of the same blocks run in sequence, microbatch by microbatch, in
+    this process; every rank's ``CollectiveMeter`` bytes the count from the
+    shapes: (S + M - 1) activations sent forward and again backward
+    (collective-permute) and one (M, B, S, d) buffer (all-reduce)."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+
+    cfg_overrides = cfg_overrides or {}
+    cfg = pipeline_config(**cfg_overrides)
+    if cfg.n_layers % world:
+        raise PhaseError(f"gpipe: {cfg.n_layers} layers do not split into {world} stages")
+    per = cfg.n_layers // world
+    lm = LM(cfg, seed=seed, device=str(device))
+    tokens = SyntheticLM(cfg.vocab_size, microbatches * mb[0], mb[1], seed=seed,
+                         device=str(device)).batch_at(0)["tokens"]
+    with torch.no_grad():
+        x = lm.embed[tokens].reshape(microbatches, mb[0], mb[1], cfg.d_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"x": x.cpu()}, f"{tmp}/inputs.pt")
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                        f"chip_smoke.gpipe_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
+                        f"{cfg_overrides!r}, {seed!r})")
+                with open(f"{tmp}/rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"gpipe: the {world} ranks did not finish in {timeout} s") from None
+        finally:
+            for p in procs:
+                p.kill()
+        wall_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
+            raise PhaseError(f"gpipe: ranks {failed} failed; rank {failed[0]}'s output:\n{tail}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    # the same blocks in sequence, microbatch by microbatch, in this process
+    # (once to warm it, as the ranks do; the second pass is timed and read)
+    lm.layers.requires_grad_(True)
+    for _ in range(2):
+        lm.layers.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(microbatches):
+            o = _stage(lm.layers, x[i])
+            torch.sum(o ** 2).backward()
+            outs.append(o.detach())
+        sync(device)
+        seq_s = time.perf_counter() - t0
+    seq_launches = kernels.launch_counts()
+    ref = torch.stack(outs).cpu()
+    scale = float(ref.abs().max())
+    out_err = max(float((r["out"] - ref).abs().max()) for r in ranks) / scale
+    grad_worst, grad_name = 0.0, None
+    for r, rk in enumerate(ranks):
+        for k, g in rk["grads"].items():
+            want = lm.layers[r * per + int(k.split(".")[0])].get_parameter(
+                k.split(".", 1)[1]).grad.cpu()
+            e = float((g - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if not e <= grad_worst:
+                grad_worst, grad_name = e, f"layers.{r * per + int(k.split('.')[0])}." \
+                                           f"{k.split('.', 1)[1]}"
+    act = mb[0] * mb[1] * cfg.d_model * x.element_size()
+    expect = {"collective-permute": 2 * (world + microbatches - 1) * act,
+              "all-reduce": microbatches * act}
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "world": world,
+           "microbatches": microbatches, "mb": list(mb), "wall_s": wall_s,
+           "step_s": [rk["step_s"] for rk in ranks],
+           "first_step_s": [rk["first_s"] for rk in ranks], "sequential_s": seq_s,
+           "out_err": out_err, "grad_worst": grad_worst, "grad_worst_param": grad_name,
+           "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
+           "calls": [rk["calls"] for rk in ranks],
+           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS},
+           "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
+           "sequential_launches": {n: seq_launches[n] for n in LM_KERNELS},
+           "plain": [rk["plain"] for rk in ranks]}
+    del lm, x, outs
+    _free(device)
+    log(f"launch (b) gpipe: {json.dumps(res)}")
+    bad = []
+    if not out_err <= PIPE_OUT_TOL:
+        bad.append(f"output {out_err:.3e} of max|out| > {PIPE_OUT_TOL}")
+    if not grad_worst <= PIPE_GRAD_TOL:
+        bad.append(f"gradient {grad_name} {grad_worst:.3e} of its max > {PIPE_GRAD_TOL}")
+    for r, rk in enumerate(ranks):
+        got = {k: rk["bytes"][k] for k in expect}
+        if got != expect or sum(rk["bytes"].values()) != sum(expect.values()):
+            bad.append(f"rank {r}'s collective bytes {rk['bytes']} against {expect}")
+    if torch.device(device).type == "cuda":
+        n_mamba = sum(cfg.mixer_kind(i) == "mamba" for i in range(cfg.n_layers))
+        # every step runs every block of the stage, bubble included
+        per_rank = (world + microbatches - 1) * n_mamba // world
+        for r, rl in enumerate(res["rank_launches"]):
+            if rl["ssd"] < per_rank:
+                bad.append(f"rank {r} launched K9 {rl['ssd']} times, not {per_rank}")
+    if bad:
+        raise PhaseError("launch (b) failed: " + "; ".join(bad))
+    return res
+
+
+def launch(device, *, seed: int = 0, cfg=None, steps: int = 8, batch: int = 4,
+           seq: int = 2048, ckpt_every: int = 4, smoke: bool = False,
+           pipe_mb: tuple[int, int] = (1, 1024), pipe_overrides: dict | None = None) -> dict:
+    """Phase 16: (a) the launcher on ``cfg`` (mamba2-370m at full width and
+    depth), killed after a checkpoint and relaunched; (b) GPipe over two
+    ranks on the one card."""
+    from repro_torch.configs import get_config
+
+    if torch.device(device).type == "cuda":
+        build_kernels()  # the launcher's and the ranks' processes load this build
+    cfg = cfg or get_config(LAUNCH_ARCH)
+    res = {"launcher": launcher_run(device, cfg, steps=steps, batch=batch, seq=seq,
+                                    ckpt_every=ckpt_every, smoke=smoke),
+           "gpipe": gpipe(device, mb=pipe_mb, seed=seed, cfg_overrides=pipe_overrides)}
+    res["launches"] = {n: res["launcher"]["launches"][n] + res["gpipe"]["launches"][n]
+                       for n in LM_KERNELS}
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 #: the phases ``--phase`` runs alone (each a function of this script).
-ALONE = ("serve", "train")
+ALONE = ("serve", "train", "launch")
 
 
 def run_alone(names, tree: str | None, seed: int) -> int:
@@ -2940,6 +3339,7 @@ def main(argv=None) -> int:
         srv = serve("cuda", seed=args.seed)
         nys = nystrom("cuda", seed=args.seed)
         trn = train("cuda", seed=args.seed)
+        lch = launch("cuda", seed=args.seed)
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
@@ -2947,8 +3347,9 @@ def main(argv=None) -> int:
     # the four FALKON paths, phase 12's serving / streaming / online work and
     # phase 13's sharded and guarded fits (its ranks' too) for K1-K7; for K8 and
     # K9 the LM forward of phase 10, the prefill + serving of phase 11, phase
-    # 14's exact prefill and phase 15's training steps
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn)
+    # 14's exact prefill, phase 15's training steps and phase 16's launcher
+    # runs and pipeline ranks
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch)
     launches = {name: sum(p["launches"].get(name, 0) for p in paths)
                 for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -3049,6 +3450,19 @@ def main(argv=None) -> int:
                f"bit-identical {resume['bit_identical']}" if resume else ""))
     log("train parity (fp32, card against CPU; loss relative, worst gradient over its max): "
         + json.dumps([(p["arch"], p["loss_rel"], p["grad_worst"]) for p in trn["parity"]]))
+    la, gp = lch["launcher"], lch["gpipe"]
+    ra, rr = la["runs"]["uninterrupted"], la["runs"]["relaunched"]
+    log(f"launch {la['arch']} ({la['n_layers']} layers, {la['batch']} x {la['seq']}, "
+        f"{la['steps']} steps): {ra['done']['tokens_per_s']:.0f} tokens/s, median step "
+        f"{ra['done']['median_step_s']:.3f} s, {ra['done']['stragglers']} stragglers; "
+        f"saves {json.dumps(ra['checkpoints'])}; killed at step {la['runs']['killed']['latest_at_kill']}, "
+        f"restore {rr['restore_s']:.3f} s, step-{la['steps']} checkpoints bit-identical "
+        f"{la['bit_identical']} ({la['leaves']} leaves); peak {ra['peak_bytes']} B against the "
+        f"dry run's per-rank state {la['dryrun_bytes_per_rank']['total']} B")
+    log(f"gpipe ({gp['world']} ranks, {gp['n_layers']} layers, {gp['dtype']}, "
+        f"{gp['microbatches']} x {json.dumps(gp['mb'])}): step {json.dumps(gp['step_s'])} s "
+        f"against {gp['sequential_s']:.3f} s in sequence; output {gp['out_err']:.3e}, worst "
+        f"gradient {gp['grad_worst']:.3e}; bytes per rank {json.dumps(gp['bytes'][0])}")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, Iterator, Optional
 
 import numpy as np
@@ -176,24 +177,32 @@ class AsyncCheckpointer:
     """Overlaps checkpoint IO with the caller's next steps (one write in
     flight). ``save`` snapshots every tensor to host memory before its
     thread starts, so a later in-place update of a saved tensor never
-    reaches a checkpoint that is still being written."""
+    reaches a checkpoint that is still being written. ``timings`` holds,
+    per save, its step, the seconds of the snapshot (the caller waits for
+    it) and of the write (in the thread)."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.timings: list[dict] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, step: int, tree: Any, *, extra: Optional[dict] = None) -> None:
         """Snapshot ``tree`` now and write it as ``step`` in a thread."""
         self.wait()
+        t0 = time.perf_counter()
         values = iter([leaf.detach().cpu().clone() if isinstance(leaf, torch.Tensor)
                        else np.array(leaf) for _, leaf in _leaves(tree)])
         host_tree = _rebuild(tree, values)
+        timing = {"step": step, "snapshot_s": time.perf_counter() - t0, "write_s": None}
+        self.timings.append(timing)
 
         def _work():
             try:
+                t1 = time.perf_counter()
                 save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra)
+                timing["write_s"] = time.perf_counter() - t1
                 self._gc()
             except BaseException as e:  # noqa: BLE001 — re-raised by wait()
                 self._error = e

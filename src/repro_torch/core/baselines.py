@@ -28,8 +28,14 @@ Tensor = torch.Tensor
 
 
 def uniform_centers(key: int | torch.Generator, n: int, m: int,
-                    device: torch.device | str = "cpu") -> CenterSet:
-    """Uniform column sampling [5]; A = (M/n) I (see uniform_center_set)."""
+                    device: torch.device | str = "cuda") -> CenterSet:
+    """Uniform column sampling [5]; A = (M/n) I (see uniform_center_set).
+
+    The draw is made on the CPU and the set goes to ``device``: the card by
+    default (raising when there is none); ``device="cpu"`` keeps it there."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: uniform_centers puts its set on the card unless "
+                           "given device='cpu'")
     return uniform_center_set(randint(as_generator(key), n, (m,), device), n, _bucket(m))
 
 

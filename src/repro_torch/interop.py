@@ -118,26 +118,36 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tenso
     q_cols = cfg.n_heads * cfg.head_dim
     kv_cols = cfg.n_kv_heads * cfg.head_dim
     out: dict[str, torch.Tensor] = {}
-    for name in ("final_norm", "embed", "out_head"):
-        if name in params:
-            out[name] = _tensor(params[name])
 
-    def put(prefix: str, tree: dict, g: int) -> None:
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                put(f"{prefix}{key}.", val, g)
-                continue
-            a = np.asarray(val)[g]
-            if prefix.endswith("attn."):
-                if key == "wq":
+    def put(path: tuple[str, ...], tree) -> None:
+        if isinstance(tree, dict):
+            for key, val in tree.items():
+                put(path + (key,), val)
+            return
+        for g, name in enumerate(lm_param_names(cfg, path)):
+            a = np.asarray(tree)[g] if path[0] == "blocks" else tree
+            if len(path) > 1 and path[-2] == "attn":
+                if path[-1] == "wq":
                     a = a[:, :q_cols]
-                elif key in ("wk", "wv"):
+                elif path[-1] in ("wk", "wv"):
                     a = a[:, :kv_cols]
-                elif key == "wo":
+                elif path[-1] == "wo":
                     a = a[:q_cols]
-            out[prefix + key] = _tensor(a)
+            out[name] = _tensor(a)
 
-    for g in range(cfg.n_groups):
-        for j in range(cfg.layer_period):
-            put(f"layers.{g * cfg.layer_period + j}.", params["blocks"][f"blk{j}"], g)
+    for name in ("final_norm", "embed", "out_head", "blocks"):
+        if name in params:
+            put((name,), params[name])
     return out
+
+
+def lm_param_names(cfg: ArchConfig, path: tuple[str, ...]) -> list[str]:
+    """The port's ``LM(cfg).state_dict()`` names of the reference's leaf at
+    ``path`` (its keys in ``init_params``' pytree): for a stacked
+    ``blocks/blk{j}/...`` leaf one per group g, layer ``g * period + j``;
+    else the path joined by dots."""
+    if path[0] != "blocks":
+        return [".".join(path)]
+    j = int(path[1].removeprefix("blk"))
+    rest = ".".join(path[2:])
+    return [f"layers.{g * cfg.layer_period + j}.{rest}" for g in range(cfg.n_groups)]

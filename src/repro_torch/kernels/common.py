@@ -40,9 +40,11 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 def is_cpu(*tensors: torch.Tensor) -> bool:
     """True if every tensor lies on the CPU (the wrappers then run the plain
-    version); False if every one lies on a CUDA device. Mixed devices raise."""
+    version), or every one on the meta device (the plain version then gives
+    shapes alone, and ``launch.cost_model.flop_count`` counts its products);
+    False if every one lies on a CUDA device. Mixed devices raise."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return True
     if kinds == {"cuda"}:
         return False

@@ -11,7 +11,9 @@ flat ``layers`` list: layer ``g * period + j`` is the reference's
 The reference pads q heads to a multiple of its 16-way model axis and
 masks the padded heads before ``wo`` (exact, shard-friendly); that is a
 sharding artefact, and the port uses ``n_heads`` and ``n_kv_heads`` as given.
-The sharding specs (``param_specs``, ``cache_specs``) are a later slice.
+``param_specs`` and ``cache_specs`` give the reference's partition specs by
+the same leaf-name rules, keyed as ``LM.state_dict()`` and ``LM.init_cache``
+are (no leading axis for the stacked layers: the port's are not stacked).
 
 ``LM.forward`` is differentiable (K8 and K9 carry ``autograd.Function``s):
 under ``cfg.remat`` each layer is checkpointed when a gradient is taken, as
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.rules import MeshCtx, PartitionSpec, logical_to_spec
 from .attention import attention, decode_attention, nystrom_attention
 from .config import ArchConfig
 from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
@@ -274,6 +277,74 @@ class LM(nn.Module):
         for layer, c in zip(self.layers, cache):
             x = layer.decode(x, c, pos, length, mrope_pos)
         return self.logits(rms_norm(x[:, 0], self.final_norm, self.cfg.norm_eps))
+
+
+# =============================================================================
+# sharding specs (leaf-name rules)
+# =============================================================================
+
+#: the model-axis width of the production meshes (``launch.mesh``), which
+#: picks a MoE layer's layout as the reference's ``TP`` does.
+SPEC_TP = 16
+
+_SPEC_RULES: dict[str, tuple[str | None, ...]] = {
+    # attention
+    "wq": ("fsdp", "model"), "wk": ("fsdp", "model"), "wv": ("fsdp", "model"),
+    "wo": ("model", "fsdp"),
+    # mlp
+    "w_gate": ("fsdp", "model"), "w_up": ("fsdp", "model"), "w_down": ("model", "fsdp"),
+    # mamba
+    "in_proj": ("fsdp", "model"), "out_proj": ("model", "fsdp"),
+    "conv_w": (None, "model"),
+    # io
+    "embed": ("model", "fsdp"), "out_head": ("fsdp", "model"),
+    "router": (None, None),
+}
+
+
+def _moe_spec(cfg: ArchConfig, name: str) -> tuple[str | None, ...]:
+    mode = cfg.moe_mode(SPEC_TP)
+    if name in ("w_gate", "w_up"):
+        return {"ep": ("model", "fsdp", None), "tp": (None, "fsdp", "model"),
+                "replicate": (None, "fsdp", None)}[mode]
+    return {"ep": ("model", None, "fsdp"), "tp": (None, "model", "fsdp"),
+            "replicate": (None, None, "fsdp")}[mode]
+
+
+def param_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict[str, PartitionSpec]:
+    """PartitionSpec of every ``LM(cfg).state_dict()`` entry, by name (built
+    from a weightless ``LM(cfg, device="meta")``)."""
+    out = {}
+    for name, t in LM(cfg, device="meta").state_dict().items():
+        keys = name.split(".")
+        leaf = keys[-1]
+        in_moe = "moe" in keys and "shared" not in keys  # shared expert = dense MLP
+        if in_moe and leaf in ("w_gate", "w_up", "w_down"):
+            logical = _moe_spec(cfg, leaf)
+        elif leaf in _SPEC_RULES:
+            logical = _SPEC_RULES[leaf]
+        else:
+            logical = (None,) * t.ndim
+        if len(logical) != t.ndim:
+            raise ValueError(f"{name}: {tuple(t.shape)} against the rule {logical}")
+        out[name] = logical_to_spec(*logical, ctx=ctx)
+    return out
+
+
+def cache_specs(cfg: ArchConfig, ctx: MeshCtx, *,
+                seq_logical: str = "none") -> list[dict[str, PartitionSpec]]:
+    """Sharding for ``LM.init_cache``'s per-layer dicts. seq_logical: 'none'
+    (replicated seq), 'seq_shard' (data) or 'seq_shard_wide' (data+model)
+    for long-context."""
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.mixer_kind(i) == "attn":
+            kv = logical_to_spec("batch", seq_logical, None, None, ctx=ctx)
+            out.append({"k": kv, "v": kv})
+        else:
+            out.append({"conv": logical_to_spec("batch", None, "model", ctx=ctx),
+                        "state": logical_to_spec("batch", "model", None, None, ctx=ctx)})
+    return out
 
 
 def logits_fn(lm: LM, h: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,15 @@ state; ``adamw_update`` writes the master, the moments and the params in
 place and returns them. At gemma-2b's 2.5 B parameters the fp32 state is
 30 GB, and a second copy beside the first would not fit the card.
 ``adamw_init`` copies (an fp32 param never aliases its master).
-``opt_state_specs`` waits for the port of ``launch/``.
+``opt_state_specs`` mirrors the param specs over that layout.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..sharding.rules import PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +51,12 @@ def adamw_init(params: dict[str, torch.Tensor]) -> dict:
             "mu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
             "nu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         }
+
+
+def opt_state_specs(pspecs: dict) -> dict:
+    """Opt-state PartitionSpecs mirroring the param specs (``adamw_init``'s
+    layout: the step replicated, master, mu and nu as their params)."""
+    return {"step": PartitionSpec(), "master": pspecs, "mu": pspecs, "nu": pspecs}
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -13,7 +13,9 @@ it is surfaced to the loop + logs, and is unit-tested with injected delays).
 FaultTolerantLoop: checkpoint-restart supervision around a step function —
 catches worker exceptions, restores the latest checkpoint, replays the
 deterministic data pipeline from the restored step (data needs no state:
-batches are a pure function of step), and resumes.
+batches are a pure function of step), and resumes. The last step is
+checkpointed once: the reference writes it a second time when it falls on
+``ckpt_every``.
 """
 from __future__ import annotations
 
@@ -87,6 +89,7 @@ class FaultTolerantLoop:
                     raise
                 log.warning("step %d failed (%s); restoring latest checkpoint", step, e)
                 step, state = restore_fn()
-        self.checkpointer.save(step, state)
+        if not (step > start_step and step % self.ckpt_every == 0):  # else just written
+            self.checkpointer.save(step, state)
         self.checkpointer.wait()
         return state, step

@@ -947,3 +947,21 @@ def test_nystrom_attention_on_the_card_matches_the_cpu(dev):
     kr, vr = attn.bless_compress_cache(k.cpu(), v.cpu(), 256)
     assert ({tuple(r) for r in kc[0, :, 0].cpu().tolist()}
             == {tuple(r) for r in kr[0, :, 0].tolist()})
+
+
+def test_gpipe_on_two_gloo_ranks_sharing_the_card_matches_the_sequential_blocks(dev):
+    # chip_smoke.py phase 16 (b) at a small width: two rank processes on the
+    # card, the stage params' gradients and the collective bytes gated there
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    res = chip_smoke.gpipe("cuda", mb=(1, 64), cfg_overrides=dict(
+        n_layers=4, d_model=128, ssm_state=16, ssm_headdim=32, vocab_size=512), timeout=300)
+    assert res["out_err"] <= chip_smoke.PIPE_OUT_TOL
+    assert res["grad_worst"] <= chip_smoke.PIPE_GRAD_TOL
+    # 4 Mamba blocks, 2 per stage, (S + M - 1) = 5 steps on each rank
+    assert res["rank_launches"] == [{"flash_attention": 0, "ssd": 10}] * 2
+    assert all(b == {**b, **res["expected_bytes"]} for b in res["bytes"])
