@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
 KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
 serving path, BLESS-Nystrom attention in gemma-2b, LM training (gemma-2b,
-mamba2-370m), the training launcher and GPipe on one H100.
+mamba2-370m), the training launcher, GPipe and the LM sharded across ranks
+on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
-    python3 chip_smoke.py --phase serve|train|launch [--tree DIR]   # one phase alone (of DIR's
+    python3 chip_smoke.py --phase serve|train|launch|shard|shard_launch [--tree DIR]   # one phase alone (of DIR's
                                      # checkout: an A/B of two commits on one card)
 
 Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
@@ -233,6 +234,32 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 ((S + M - 1) activations handed on forward and again
                 backward, one (M, 1, 1 024, d) buffer summed); K9 launched
                 in every block of every step on each rank.
+ 17. shard      the LM sharded across ranks (``sharding.collectives``: FSDP
+                over data, tensor parallelism over model), four ranks
+                sharing the card over gloo. (a) `torchrun --nproc-per-node
+                4 -m repro_torch.launch.train --mesh local` (data = 4) on
+                mamba2-370m at full width and depth, bf16, 8 steps of 4 x
+                2 048 tokens (one row a rank), a checkpoint every 4 steps
+                (gathered to rank 0); once through, once SIGKILLed (the
+                whole process tree) after step 4's checkpoint and
+                relaunched. Gates: the step-8 checkpoints the same bits in
+                every leaf; step 1's loss within 1e-3 relative of phase
+                16's one-rank launcher; each rank's state bytes the dry
+                run's for MeshShape(("data", "model"), (4, 1)); K9 launched
+                twice per layer and step on every rank. Printed: each
+                rank's peak memory, tokens/s. (b) One fp32 step of
+                make_train_step on a (data 2, model 2) mesh, one row of 512
+                tokens a data rank, of qwen3-32b at full width cut to 2
+                layers (K8 on 32 q / 4 kv heads a rank) and of mamba2-370m
+                at full width cut to 8 layers (K9 on 16 of 32 heads; at 48
+                fp32's reordering noise passes the gate), the weights
+                built from --seed here and read by each rank from a
+                one-rank checkpoint; then the same step unsharded on the
+                card once the ranks have exited. Gates: loss within 1e-5
+                relative; every gradient (each rank's blocks, from AdamW's
+                first mu on both sides) within 1e-4 of its max; each rank's
+                CollectiveMeter bytes the closed form shard_step_bytes; K8
+                and K9 launched in every layer on every rank (twice: remat).
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -2955,6 +2982,7 @@ def launcher_run(device, cfg, *, steps: int = 8, batch: int = 4, seq: int = 2048
 
     from repro_torch.launch.dryrun import state_bytes
     from repro_torch.launch.specs import train_specs
+    from repro_torch.models import LM
     from repro_torch.sharding import MeshCtx, MeshShape
 
     on_card = torch.device(device).type == "cuda"
@@ -3259,10 +3287,639 @@ def launch(device, *, seed: int = 0, cfg=None, steps: int = 8, batch: int = 4,
 
 
 # ---------------------------------------------------------------------------
+# 17. the LM sharded across ranks: FSDP over data, tensor parallelism over model
+# ---------------------------------------------------------------------------
+
+#: phase 17 (a): the launcher on this many ranks sharing the card (gloo),
+#: ``--mesh local`` (every rank on ``data``).
+SHARD_WORLD = 4
+#: phase 17 (a): step 1's loss against the one-rank launcher's (phase 16), relative.
+SHARD_LOSS_RTOL = 1e-3
+#: phase 17 (b): the (data, model) mesh, and the reference's tolerances
+#: (phase 15 (c)'s form): loss relative, each gradient over its max.
+TP_MESH = (2, 2)
+TP_LOSS_RTOL, TP_GRAD_TOL = 1e-5, 1e-4
+#: phase 17 (b)'s models at full width: qwen3-32b cut to this many layers,
+#: mamba2-370m at its full depth.
+TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen3-32b", 2
+#: phase 17 (b)'s models whose gradient gate is refereed: at mamba2-370m's
+#: 48 layers fp32's own rounding reaches past TP_GRAD_TOL of some leaves'
+#: max|g|, so there each leaf's distance from the unsharded step on the card
+#: may exceed TP_GRAD_TOL by as much as the same unsharded step on the host
+#: CPU (another order of every sum, K9's plain version) lies from it at its
+#: worst leaf: the model's fp32 noise at that depth, measured in the run
+#: (phases 4 and 12 gate an fp32 fit so against its fp64 referee).
+TP_REFEREED = ("mamba2-370m",)
+
+
+def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: int) -> dict:
+    """Per-rank bytes of one sharded train step's collectives on a (data =
+    ``dp``, model = ``mp``) mesh, ``rows`` x ``seq`` tokens on the rank, in
+    ``CollectiveMeter``'s terms: the closed form of ``sharding.collectives``'
+    scheme (PERF.md section 6).
+
+    Per forward of a leaf split over ``data``: a gather, an all-to-all whose
+    output is ``dp`` blocks in the param dtype, and in the backward one fp32
+    reduce-scatter, an all-to-all of ``dp`` blocks too; the same over
+    ``model`` where the model gathers there too (attention's k/v when the
+    kv heads do not divide over ``model``; Mamba-2's ``in_proj`` and
+    conv). Over ``model`` (mp > 1),
+    fp32 all-reduces of the (rows, seq, d) hidden state: one forward after
+    each row-parallel product, one backward at each column-parallel input
+    (the embedding lookup, the head's input), Mamba-2's gated norm two of
+    (rows, seq), its per-head vectors and norm gain one each, qk-norm gains
+    one each, and per loss chunk three of its (rows, chunk) statistics. Under
+    remat each layer's forward runs twice, its trailing all-reduce once (the
+    recompute stops at the last tensor the backward needs), and each loss
+    chunk twice. Over ``data`` (dp > 1): the loss (4 B) and one all-reduce of
+    every leaf not split over ``data`` (its gradient). The norm: one
+    all-reduce per split axis of a float per group of leaves split alike."""
+    from repro_torch.models import LM
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.sharding import MeshCtx, MeshShape, logical_to_spec
+
+    it = 2 if cfg.dtype == "bfloat16" else 4
+    d, tok = cfg.d_model, rows * seq
+    act = 4 * tok * d
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0}
+
+    def up(n, k):
+        return -(-n // k)
+
+    def gather(shape, data_dim, model_dim, model_too=False, times=1):
+        local = [up(n, dp) if i == data_dim else up(n, mp) if i == model_dim else n
+                 for i, n in enumerate(shape)]
+        if dp > 1 and data_dim is not None:
+            out["all-to-all"] += dp * math.prod(local) * (times * it + 4)
+        if model_too and mp > 1:
+            full = [up(n, mp) if i == model_dim else n for i, n in enumerate(shape)]
+            out["all-to-all"] += mp * math.prod(full) * (times * it + 4)
+
+    times = 2 if cfg.remat else 1
+    for i in range(cfg.n_layers):
+        if cfg.mixer_kind(i) == "attn":
+            hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            gather((d, hq * hd), 0, 1, times=times)
+            for _ in range(2):
+                gather((d, hkv * hd), 0, 1, hkv % mp != 0, times)
+            gather((hq * hd, d), 1, 0, times=times)
+            if mp > 1:
+                out["all-reduce"] += times * act + act + (2 * hd * 4 if cfg.qk_norm else 0)
+        else:
+            di, ns, nh, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+            gather((d, 2 * di + 2 * ns + nh), 0, 1, True, times)
+            gather((k, di + 2 * ns), None, 1, True, times)
+            gather((di, d), 1, 0, times=times)
+            if mp > 1:
+                out["all-reduce"] += (times * (act + 4 * tok) + act + 4 * tok
+                                      + 4 * (3 * nh + di))
+        kind = cfg.mlp_kind(i)
+        gated = cfg.mlp_act in ("swiglu", "geglu")
+        if kind == "dense" or (kind == "moe" and cfg.shared_expert_ff):
+            ff = cfg.d_ff if kind == "dense" else cfg.shared_expert_ff
+            for _ in range(2 if gated else 1):
+                gather((d, ff), 0, 1, times=times)
+            gather((ff, d), 1, 0, times=times)
+            if mp > 1:
+                out["all-reduce"] += times * act + act
+        if kind == "moe":
+            e, ff = cfg.n_experts, cfg.d_ff
+            for _ in range(2 if gated else 1):
+                gather((e, d, ff), 1, None, times=times)
+            gather((e, ff, d), 2, None, times=times)
+        if cfg.remat and mp > 1:
+            out["all-reduce"] -= act  # the layer's last all-reduce is not recomputed
+    vp = padded_vocab(cfg)
+    if cfg.embed_inputs:
+        gather((vp, d), 1, 0)
+        if mp > 1:
+            out["all-reduce"] += act
+    if cfg.tie_embeddings:
+        gather((vp, d), 1, 0)
+    else:
+        gather((d, vp), 0, 1)
+    if mp > 1:
+        out["all-reduce"] += act + 2 * 12 * tok
+    # the loss, the replicated leaves' gradients, the norm
+    ctx = MeshCtx(mesh=MeshShape(("data", "model"), (dp, mp)))
+    lm = LM(cfg, device="meta")
+    sizes = {"data": dp, "model": mp}
+    keys, replicated = set(), 0
+    for name, t in lm.state_dict().items():
+        spec = logical_to_spec(*lm.logical[name], ctx=ctx)
+        axes = [e if isinstance(e, str) else None for e in spec] + [None] * (t.ndim - len(spec))
+        local = math.prod(up(n, sizes[a]) if a else n for n, a in zip(t.shape, axes))
+        keys.add(tuple(a for a in ("data", "model") if a in axes and sizes[a] > 1))
+        if "data" not in axes:
+            replicated += local
+    if dp > 1:
+        out["all-reduce"] += 4 + 4 * replicated
+    for a in ("data", "model"):
+        if sizes[a] > 1 and any(a in k for k in keys):
+            out["all-reduce"] += 4 * len(keys)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _kill_tree(pid: int) -> None:
+    """SIGKILL ``pid`` and every process under it (torchrun starts each rank
+    in a session of its own, so its process group does not reach them)."""
+    import signal
+
+    children: dict[int, list[int]] = {}
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        children.setdefault(int(fields[1]), []).append(int(stat.parent.name))
+    tree, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo.extend(children.get(p, []))
+    for p in reversed(tree):  # the ranks first, then the agent
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def _rank_logs(text: str) -> dict:
+    """The sharded launcher's own lines: each rank's launches per logged
+    step, and each rank's state bytes and peak device memory."""
+    out = {"rank_launches": {}, "ranks": None}
+    for m in re.finditer(r"step (\d+) rank launches (\[.*\])", text):
+        out["rank_launches"][int(m[1])] = json.loads(m[2])
+    if m := re.search(r"per-rank: (\[.*\])", text):
+        out["ranks"] = json.loads(m[1])
+    return out
+
+
+def shard_launcher(device, cfg, *, world: int = SHARD_WORLD, steps: int = 8, batch: int = 4,
+                   seq: int = 2048, ckpt_every: int = 4, smoke: bool = False,
+                   one_rank_loss: float | None = None, timeout: float = 900.0) -> dict:
+    """Phase 17 (a): ``torchrun --nproc-per-node world -m
+    repro_torch.launch.train --mesh local`` on ``cfg`` (every rank on
+    ``data``, gloo on one card), as a user runs it: once uninterrupted into
+    D1; once into D2, SIGKILLed (torchrun and its ranks, one process group)
+    as soon as step ``ckpt_every``'s checkpoint has committed, and
+    relaunched. Gates: the relaunch restores at ``ckpt_every``; every step's
+    loss and grad norm finite; the step-``steps`` checkpoints of D1 and D2
+    the same bits in every leaf; step 1's loss within SHARD_LOSS_RTOL of the
+    one-rank launcher's (``one_rank_loss``: phase 16's; without it a
+    one-rank launcher runs one step here); each rank's state bytes the dry
+    run's for ``MeshShape(("data", "model"), (world, 1))``; on the card each
+    rank's peak while its params are drawn at most its blocks and one whole
+    leaf's draw, and K9 (K8) launched twice per Mamba (attention) layer and
+    step on every rank."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.launch.dryrun import state_bytes
+    from repro_torch.launch.specs import train_specs
+    from repro_torch.models import LM
+    from repro_torch.sharding import MeshCtx, MeshShape
+
+    on_card = torch.device(device).type == "cuda"
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    want = {"flash_attention": n_attn, "ssd": cfg.n_layers - n_attn}
+    want = {k: v * (2 if cfg.remat else 1) for k, v in want.items() if v}
+    threads = max(1, (os.cpu_count() or world) // world)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "OMP_NUM_THREADS": str(threads)}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    args = ["--arch", cfg.name.removesuffix("-smoke"), "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--ckpt-every", str(ckpt_every), "--log-every", "1",
+            "--device", str(device)] + (["--smoke"] if smoke else [])
+    bad, runs = [], {}
+
+    def cmd(d):
+        return ([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
+                 "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+                 "-m", "repro_torch.launch.train", "--mesh", "local", "--ckpt-dir", str(d)]
+                + args)
+
+    def parse(text):
+        return {**_launcher_log(text), **_rank_logs(text)}
+
+    def run(name, d):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd(d), env=env, capture_output=True, text=True, timeout=timeout,
+                             start_new_session=True)
+        runs[name] = {**parse(out.stderr + out.stdout), "rc": out.returncode,
+                      "wall_s": time.perf_counter() - t0}
+        if out.returncode != 0:
+            raise PhaseError(f"shard: the {name} launcher run exited {out.returncode}:\n"
+                             f"{(out.stderr + out.stdout)[-3000:]}")
+
+    try:
+        if one_rank_loss is None:
+            t0 = time.perf_counter()
+            one = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps",
+                                  "1"] + args[2:] + ["--arch", args[1]], env=env,
+                                 capture_output=True, text=True, timeout=timeout)
+            if one.returncode != 0:
+                raise PhaseError(f"shard: the one-rank launcher exited {one.returncode}:\n"
+                                 f"{(one.stderr + one.stdout)[-3000:]}")
+            one_rank_loss = _launcher_log(one.stderr + one.stdout)["steps"][0]["loss"]
+            runs["one_rank"] = {"wall_s": time.perf_counter() - t0}
+        d1, d2 = tmp / "D1", tmp / "D2"
+        run("uninterrupted", d1)
+        for p in d1.glob("step_*"):
+            if p.name != f"step_{steps:08d}":
+                shutil.rmtree(p)
+        t0 = time.perf_counter()
+        with open(tmp / "killed.log", "w") as f:
+            proc = subprocess.Popen(cmd(d2), env=env, stdout=f, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            marker = d2 / f"step_{ckpt_every:08d}" / "manifest.json"
+            try:
+                while proc.poll() is None and not marker.exists():
+                    if time.perf_counter() - t0 > timeout:
+                        raise PhaseError(f"shard: no step-{ckpt_every} checkpoint in {timeout} s")
+                    time.sleep(0.02)
+            finally:
+                _kill_tree(proc.pid)  # torchrun and every rank
+                proc.wait()
+        killed_at = max((int(p.name[5:]) for p in d2.glob("step_*")
+                         if not p.name.endswith(".tmp")), default=None)
+        runs["killed"] = {**parse((tmp / "killed.log").read_text()), "rc": proc.returncode,
+                          "wall_s": time.perf_counter() - t0, "latest_at_kill": killed_at}
+        if proc.returncode != -signal.SIGKILL:
+            bad.append(f"the second run ended with {proc.returncode}, not by SIGKILL")
+        run("relaunched", d2)
+        n_leaves, differ = _same_checkpoint(d1 / f"step_{steps:08d}", d2 / f"step_{steps:08d}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if runs["relaunched"]["restored"] != ckpt_every:
+        bad.append(f"the relaunch restored step {runs['relaunched']['restored']}, "
+                   f"not {ckpt_every}")
+    launches = {n: 0 for n in LM_KERNELS}
+    for name in ("uninterrupted", "killed", "relaunched"):
+        r = runs[name]
+        for rec in r["steps"]:
+            if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+                bad.append(f"{name} step {rec['step']}: loss {rec['loss']}, "
+                           f"grad_norm {rec['grad_norm']}")
+        for step, ranks in r["rank_launches"].items():
+            if len(ranks) != world:
+                bad.append(f"{name} step {step}: launches of {len(ranks)} ranks, not {world}")
+            for k, rl in enumerate(ranks):
+                for n in LM_KERNELS:
+                    launches[n] += rl.get(n, 0)
+                if on_card:
+                    for n, w in want.items():
+                        if rl.get(n, 0) != w:
+                            bad.append(f"{name} step {step} rank {k}: {n} launched "
+                                       f"{rl.get(n, 0)} times, not {w}")
+    logged = [r["step"] for r in runs["uninterrupted"]["steps"]]
+    if logged != list(range(1, steps + 1)) or \
+            sorted(runs["uninterrupted"]["rank_launches"]) != logged:
+        bad.append(f"the uninterrupted run logged steps {logged}")
+    if [r["step"] for r in runs["relaunched"]["steps"]] != list(range(ckpt_every + 1, steps + 1)):
+        bad.append(f"the relaunch logged steps {[r['step'] for r in runs['relaunched']['steps']]}")
+    if differ:
+        bad.append(f"D1 and D2's step-{steps} checkpoints differ in {len(differ)} of "
+                   f"{n_leaves} leaves: {differ[:5]}")
+    loss1 = runs["uninterrupted"]["steps"][0]["loss"] if logged else float("nan")
+    loss_rel = abs(loss1 - one_rank_loss) / abs(one_rank_loss)
+    if not loss_rel <= SHARD_LOSS_RTOL:
+        bad.append(f"step 1's loss {loss1} against the one-rank launcher's {one_rank_loss}: "
+                   f"{loss_rel:.3e} relative > {SHARD_LOSS_RTOL}")
+    _, sargs = train_specs(cfg, batch, seq,
+                           MeshCtx(mesh=MeshShape(("data", "model"), (world, 1))))
+    dry = state_bytes(sargs, "train")
+    ranks = runs["uninterrupted"]["ranks"] or []
+    if [r["state_bytes"] for r in ranks] != [dry["params"] + dry["opt"]] * world:
+        bad.append(f"per-rank state bytes {[r['state_bytes'] for r in ranks]} against the dry "
+                   f"run's {dry['params'] + dry['opt']}")
+    # the params drawn leaf by leaf: the rank's blocks and one whole leaf's
+    # draw (ninit: two fp32 copies) at once, and a little for the generator
+    biggest = max(p.numel() for p in LM(cfg, device="meta").parameters())
+    init_bound = dry["params"] + 8 * biggest + 2 ** 26
+    if on_card and not all(r["init_peak_bytes"] <= init_bound for r in ranks):
+        bad.append(f"peak bytes while drawing the params {[r['init_peak_bytes'] for r in ranks]}"
+                   f" > {init_bound} (the blocks and one whole leaf)")
+    done = runs["uninterrupted"]["done"] or {}
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "world": world, "steps": steps,
+           "batch": batch, "seq": seq, "ckpt_every": ckpt_every,
+           "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("steps", "rank_launches")}
+                    for k, v in runs.items()},
+           "losses": [r["loss"] for r in runs["uninterrupted"]["steps"]],
+           "losses_relaunched": [r["loss"] for r in runs["relaunched"]["steps"]],
+           "one_rank_loss": one_rank_loss, "loss_rel": loss_rel,
+           "leaves": n_leaves, "bit_identical": not differ,
+           "dryrun_bytes_per_rank": {**dry, "total": sum(dry.values())},
+           "rank_state_bytes": [r["state_bytes"] for r in ranks],
+           "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+           "rank_init_peak_bytes": [r["init_peak_bytes"] for r in ranks],
+           "init_peak_bound": init_bound,
+           "tokens_per_s": done.get("tokens_per_s"), "median_step_s": done.get("median_step_s"),
+           "launches": launches}
+    log(f"shard (a) {cfg.name} on {world} ranks: {json.dumps(res)}")
+    if bad:
+        raise PhaseError("shard (a) failed: " + "; ".join(bad))
+    return res
+
+
+def tp_config(arch: str, **overrides):
+    """Phase 17 (b)'s models, in fp32 at full width: qwen3-32b cut to
+    ``TP_DENSE_LAYERS`` layers, mamba2-370m at its full depth."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == TP_DENSE_ARCH:
+        overrides = {"n_layers": TP_DENSE_LAYERS, **overrides}
+    return dataclasses.replace(cfg, dtype="float32", **overrides)
+
+
+def _tp_opt():
+    from repro_torch.optim import OptConfig
+
+    return OptConfig(peak_lr=1e-3, warmup=1, total_steps=10)
+
+
+def _grads_from_mu(opt: dict, grad_norm: float, clip: float, b1: float) -> dict:
+    """The gradients of a first AdamW step from its moments: mu = (1 - b1)
+    g min(1, clip / |g|)."""
+    scale = min(1.0, clip / max(grad_norm, 1e-9))
+    return {k: v / ((1 - b1) * scale) for k, v in opt["mu"].items()}
+
+
+def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: dict,
+            mesh: tuple[int, int], rows: int, seq: int, chunks: int, seed: int) -> None:
+    """One rank of phase 17 (b), in its own process: a gloo group on
+    ``tmp``'s file, a (data, model) ``DeviceMesh``, the params' blocks of
+    the seed's model drawn leaf by leaf (``models.init_blocks``, as the
+    launcher does), its rows of the batch, one step of ``make_train_step``
+    under a ``CollectiveMeter``; writes ``tmp/rank<r>.pt`` (the step's loss,
+    norm, bytes, launches, and its blocks of the gradient, from AdamW's
+    mu)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.roofline import CollectiveMeter
+    from repro_torch.models import init_blocks, param_specs
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import MeshCtx, collectives, mesh_coords, set_mesh_ctx
+    from repro_torch.training import TrainState, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)  # every rank shares the one card
+        torch.cuda.init()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world)
+    try:
+        cfg = tp_config(arch, **overrides)
+        dmesh = init_device_mesh(torch.device(device).type, mesh,
+                                 mesh_dim_names=("data", "model"))
+        ctx = MeshCtx(mesh=dmesh)
+        set_mesh_ctx(ctx)
+        plan = collectives.active()
+        pspecs = param_specs(cfg, ctx)
+        t0 = time.perf_counter()
+        params = {k: v.requires_grad_(True) for k, v in
+                  init_blocks(cfg, pspecs, dmesh, seed=seed, device=device).items()}
+        sync(device)
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() if on_card else None
+        state = TrainState(params, adamw_init(params))
+        batch = SyntheticLM(cfg.vocab_size, rows * mesh[0], seq, seed=seed, device=device,
+                            shard=(plan.batch_index, plan.batch_ways)).batch_at(0)
+        step = make_train_step(cfg, _tp_opt(), loss_chunks=chunks)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        with CollectiveMeter() as meter:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(device)
+            step_s = time.perf_counter() - t0
+        opt = _tp_opt()
+        grads = _grads_from_mu(state.opt, float(m["grad_norm"]), opt.clip_norm, opt.b1)
+        torch.save({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "coords": mesh_coords(dmesh), "grads": {k: v.cpu() for k, v in grads.items()},
+                    "bytes": meter.bytes, "calls": meter.calls, "step_s": step_s,
+                    "init_s": init_s, "init_peak_bytes": init_peak,
+                    "launches": kernels.launch_counts(),
+                    "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None},
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        set_mesh_ctx(None)
+        dist.destroy_process_group()
+
+
+def _tp_grads(cfg, params: dict, batch: dict, chunks: int) -> tuple[float, dict, float]:
+    """(loss, gradients, seconds) of one unsharded ``make_train_step`` on
+    ``params`` (updated in place), the gradients from AdamW's first mu."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainState, make_train_step
+
+    device = next(iter(params.values())).device
+    state = TrainState(params, adamw_init(params))
+    sync(device)
+    t0 = time.perf_counter()
+    state, m = make_train_step(cfg, _tp_opt(), loss_chunks=chunks)(state, batch)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    opt = _tp_opt()
+    return (float(m["loss"]), _grads_from_mu(state.opt, float(m["grad_norm"]), opt.clip_norm,
+                                             opt.b1), seconds)
+
+
+def _leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| over max|want|."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows: int = 1,
+                    seq: int = 512, chunks: int = 4, seed: int = 0,
+                    overrides: dict | None = None, timeout: float = 900.0) -> dict:
+    """Phase 17 (b): one fp32 step of ``make_train_step`` on ``tp_config(arch)``
+    over a (data, model) = ``mesh`` of ranks sharing the card (subprocesses,
+    gloo, ``file://`` rendezvous), each with ``rows`` rows of ``seq`` tokens
+    and its blocks of the seed's model; then the same step unsharded on the
+    card in this process, once the ranks have exited, and for an ``arch``
+    in TP_REFEREED on the host CPU from the card's weights. Gates: the loss
+    within TP_LOSS_RTOL; every gradient (each rank's blocks against the
+    unsharded one's, recovered from AdamW's first mu on both sides) within
+    TP_GRAD_TOL of its max, plus, where refereed, the CPU step's largest
+    such distance from the card's over all leaves; each rank's
+    ``CollectiveMeter`` bytes
+    ``shard_step_bytes``; on the card K8 and K9 launched in every layer on
+    every rank (twice under remat)."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM, param_specs
+    from repro_torch.sharding import MeshCtx, MeshShape, block
+
+    overrides = overrides or {}
+    cfg = tp_config(arch, **overrides)
+    world = mesh[0] * mesh[1]
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                        f"chip_smoke.tp_rank({r}, {world}, {tmp!r}, {str(device)!r}, {arch!r}, "
+                        f"{overrides!r}, {tuple(mesh)!r}, {rows}, {seq}, {chunks}, {seed})")
+                with open(f"{tmp}/rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"shard (b): the {world} ranks did not finish in {timeout} s") \
+                from None
+        finally:
+            for p in procs:
+                p.kill()
+        wall_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
+            raise PhaseError(f"shard (b) {arch}: ranks {failed} failed; rank {failed[0]}'s "
+                             f"output:\n{tail}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    # the same step unsharded on the card, from the same seed
+    lm = LM(cfg, seed=seed, device=str(device))
+    params = {k: p.detach().requires_grad_(True) for k, p in lm.named_parameters()}
+    del lm
+    host = ({k: p.detach().to("cpu", copy=True).requires_grad_(True)
+             for k, p in params.items()} if arch in TP_REFEREED else None)
+    batch = SyntheticLM(cfg.vocab_size, rows * mesh[0], seq, seed=seed,
+                        device=str(device)).batch_at(0)
+    kernels.reset_launch_counts()
+    loss, ref, ref_s = _tp_grads(cfg, params, batch, chunks)
+    del params
+    noise, cpu_s = {}, None
+    if host is not None:  # the referee: the same step on the host CPU
+        threads = torch.get_num_threads()
+        torch.set_num_threads(os.cpu_count() or threads)
+        try:
+            _, grads, cpu_s = _tp_grads(cfg, host, {k: v.cpu() for k, v in batch.items()},
+                                        chunks)
+        finally:
+            torch.set_num_threads(threads)
+        noise = {k: _leaf_err(g, ref[k].cpu()) for k, g in grads.items()}
+        del host, grads
+    shape = MeshShape(("data", "model"), tuple(mesh))
+    specs = param_specs(cfg, MeshCtx(mesh=shape))
+    noise_worst = max(noise.items(), key=lambda kv: kv[1], default=(None, 0.0))
+    bound = TP_GRAD_TOL + noise_worst[1]
+    worst, worst_name, over = 0.0, None, []
+    for k, g in ref.items():
+        e = max(_leaf_err(rk["grads"][k], block(g, specs[k], shape, rk["coords"]).cpu())
+                for rk in ranks)
+        if not e <= worst:
+            worst, worst_name = e, k
+        if not e <= bound:
+            over.append(f"{k} {e:.3e}")
+    del ref
+    _free(device)
+    loss_rel = max(abs(rk["loss"] - loss) for rk in ranks) / abs(loss)
+    expect = shard_step_bytes(cfg, mesh[0], mesh[1], rows, seq, chunks)
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "mesh": list(mesh), "rows_per_rank": rows, "seq": seq, "loss": loss,
+           "loss_rel": loss_rel, "grad_worst": worst, "grad_worst_param": worst_name,
+           "referee_worst": noise_worst[1] if noise else None,
+           "referee_worst_param": noise_worst[0], "grad_bound": bound,
+           "referee_at_grad_worst": noise.get(worst_name), "over": over,
+           "wall_s": wall_s, "step_s": [rk["step_s"] for rk in ranks],
+           "init_s": [rk["init_s"] for rk in ranks], "unsharded_step_s": ref_s,
+           "cpu_step_s": cpu_s, "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
+           "calls": [rk["calls"] for rk in ranks],
+           "rank_init_peak_bytes": [rk["init_peak_bytes"] for rk in ranks],
+           "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
+           "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
+           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS}}
+    log(f"shard (b) {cfg.name}: {json.dumps(res)}")
+    bad = []
+    if not loss_rel <= TP_LOSS_RTOL:
+        bad.append(f"loss {loss_rel:.3e} relative > {TP_LOSS_RTOL}")
+    if over:
+        bad.append(f"{len(over)} gradients past {bound:.3e} of their max: {over[:5]}")
+    for r, rk in enumerate(ranks):
+        got = {k: rk["bytes"][k] for k in expect}
+        if got != expect or sum(rk["bytes"].values()) != sum(expect.values()):
+            bad.append(f"rank {r}'s collective bytes {rk['bytes']} against {expect}")
+    if on_card:
+        n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+        want = {"flash_attention": n_attn, "ssd": cfg.n_layers - n_attn}
+        for r, rl in enumerate(res["rank_launches"]):
+            for n, w in want.items():
+                if rl[n] != w * (2 if cfg.remat else 1):
+                    bad.append(f"rank {r} launched {n} {rl[n]} times, not "
+                               f"{w * (2 if cfg.remat else 1)}")
+    if bad:
+        raise PhaseError(f"shard (b) {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def shard(device, *, seed: int = 0, launch_loss: float | None = None, cfg=None,
+          steps: int = 8, batch: int = 4, seq: int = 2048, ckpt_every: int = 4,
+          smoke: bool = False, tp_seq: int = 512, tp_overrides: dict | None = None) -> dict:
+    """Phase 17: (a) the launcher on SHARD_WORLD ranks sharing the card,
+    killed after a checkpoint and relaunched; (b) one fp32 step on a
+    (data, model) = TP_MESH mesh of qwen3-32b (TP_DENSE_LAYERS layers) and
+    mamba2-370m (all its layers) against the unsharded step."""
+    from repro_torch.configs import get_config
+
+    if torch.device(device).type == "cuda":
+        build_kernels()  # the ranks' processes load this build
+    cfg = cfg or get_config(LAUNCH_ARCH)
+    res = {"launcher": shard_launcher(device, cfg, steps=steps, batch=batch, seq=seq,
+                                      ckpt_every=ckpt_every, smoke=smoke,
+                                      one_rank_loss=launch_loss),
+           "dense": tensor_parallel(device, TP_DENSE_ARCH, seq=tp_seq, seed=seed,
+                                    overrides=tp_overrides),
+           "mamba": tensor_parallel(device, LAUNCH_ARCH, seq=tp_seq, seed=seed,
+                                    overrides=tp_overrides)}
+    res["launches"] = {n: sum(res[k]["launches"][n] for k in ("launcher", "dense", "mamba"))
+                       for n in LM_KERNELS}
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+
+def shard_launch(device, *, seed: int = 0) -> dict:
+    """Phase 17 (a) alone on every card of the machine: one rank per card
+    when it has more than one (the launcher's group is then NCCL, by
+    ``launch.mesh.backend_for``), else SHARD_WORLD ranks sharing the card
+    over gloo. Step 1's loss is held to a one-rank launcher run here."""
+    from repro_torch.configs import get_config
+
+    build_kernels()
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    return shard_launcher(device, get_config(LAUNCH_ARCH),
+                          world=cards if cards > 1 else SHARD_WORLD)
 
 
 #: the phases ``--phase`` runs alone (each a function of this script).
-ALONE = ("serve", "train", "launch")
+ALONE = ("serve", "train", "launch", "shard", "shard_launch")
 
 
 def run_alone(names, tree: str | None, seed: int) -> int:
@@ -3340,6 +3997,7 @@ def main(argv=None) -> int:
         nys = nystrom("cuda", seed=args.seed)
         trn = train("cuda", seed=args.seed)
         lch = launch("cuda", seed=args.seed)
+        shd = shard("cuda", seed=args.seed, launch_loss=lch["launcher"]["losses"][0])
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
@@ -3347,9 +4005,9 @@ def main(argv=None) -> int:
     # the four FALKON paths, phase 12's serving / streaming / online work and
     # phase 13's sharded and guarded fits (its ranks' too) for K1-K7; for K8 and
     # K9 the LM forward of phase 10, the prefill + serving of phase 11, phase
-    # 14's exact prefill, phase 15's training steps and phase 16's launcher
-    # runs and pipeline ranks
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch)
+    # 14's exact prefill, phase 15's training steps, phase 16's launcher
+    # runs and pipeline ranks and phase 17's sharded ranks
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd)
     launches = {name: sum(p["launches"].get(name, 0) for p in paths)
                 for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -3463,6 +4121,24 @@ def main(argv=None) -> int:
         f"{gp['microbatches']} x {json.dumps(gp['mb'])}): step {json.dumps(gp['step_s'])} s "
         f"against {gp['sequential_s']:.3f} s in sequence; output {gp['out_err']:.3e}, worst "
         f"gradient {gp['grad_worst']:.3e}; bytes per rank {json.dumps(gp['bytes'][0])}")
+    sa = shd["launcher"]
+    log(f"shard (a) {sa['arch']} on {sa['world']} ranks (data {sa['world']}, gloo on one card), "
+        f"{sa['batch']} x {sa['seq']}: {sa['tokens_per_s']} tokens/s, median step "
+        f"{sa['median_step_s']} s; step-{sa['steps']} checkpoints bit-identical "
+        f"{sa['bit_identical']} ({sa['leaves']} leaves); step 1 loss {sa['losses'][0]} against "
+        f"the one-rank {sa['one_rank_loss']}; state bytes a rank {json.dumps(sa['rank_state_bytes'])} "
+        f"(dry run {sa['dryrun_bytes_per_rank']['params'] + sa['dryrun_bytes_per_rank']['opt']}); "
+        f"peak {json.dumps(sa['rank_peak_bytes'])} B, during the init "
+        f"{json.dumps(sa['rank_init_peak_bytes'])} B")
+    for key in ("dense", "mamba"):
+        sb = shd[key]
+        log(f"shard (b) {sb['arch']} ({sb['n_layers']} layers, fp32, mesh {json.dumps(sb['mesh'])}): "
+            f"loss {sb['loss_rel']:.3e} relative, worst gradient {sb['grad_worst']:.3e} "
+            f"({sb['grad_worst_param']}; bound {sb['grad_bound']:.3e}, the CPU referee's worst "
+            f"{sb['referee_worst']}); step "
+            f"{json.dumps([round(x, 3) for x in sb['step_s']])} s against {sb['unsharded_step_s']:.3f} s "
+            f"unsharded; bytes a rank {json.dumps(sb['bytes'][0])}; peak "
+            f"{json.dumps(sb['rank_peak_bytes'])} B")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -12,6 +12,12 @@ sequence items as ``[i]``, NamedTuple fields as ``.name``. bf16 leaves go
 to disk as their uint16 bit pattern (``stored_dtype`` "uint16") and come
 back bit for bit.
 
+A state distributed over a mesh keeps that format: ``ShardedCheckpointer``
+gathers the full leaves to rank 0, which writes them as a one-rank run
+would, and ``restore_checkpoint(..., specs=, mesh=)`` reads each rank's
+block of each leaf through a memory map (only the block reaches host
+memory). So a one-rank checkpoint restores onto a mesh, and back.
+
 Writes go to a ``.tmp`` directory that is renamed into place, so
 ``latest_step`` only ever sees complete checkpoints. Every filesystem step
 of ``save_checkpoint`` hosts the ``ckpt.torn_write`` injection point
@@ -50,17 +56,21 @@ def _is_namedtuple(t: Any) -> bool:
     return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
-def _leaves(tree: Any, path: tuple = ()) -> list[tuple[tuple, Any]]:
+def _leaves(tree: Any, path: tuple = (), is_leaf=None) -> list[tuple[tuple, Any]]:
     """(path, leaf) pairs in JAX's tree order: dicts by sorted key, lists and
-    tuples by index, NamedTuples by field; None is an empty subtree."""
+    tuples by index, NamedTuples by field; None is an empty subtree; a node
+    for which ``is_leaf`` holds is a leaf."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [pl for k in sorted(tree) for pl in _leaves(tree[k], path + (str(k),))]
+        return [pl for k in sorted(tree) for pl in _leaves(tree[k], path + (str(k),), is_leaf)]
     if _is_namedtuple(tree):
-        return [pl for f in tree._fields for pl in _leaves(getattr(tree, f), path + (f".{f}",))]
+        return [pl for f in tree._fields
+                for pl in _leaves(getattr(tree, f), path + (f".{f}",), is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [pl for i, v in enumerate(tree) for pl in _leaves(v, path + (f"[{i}]",))]
+        return [pl for i, v in enumerate(tree) for pl in _leaves(v, path + (f"[{i}]",), is_leaf)]
     return [(path, tree)]
 
 
@@ -122,11 +132,15 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
 
 
 def restore_checkpoint(ckpt_dir: str, template: Any, *,
-                       step: Optional[int] = None) -> tuple[int, Any]:
+                       step: Optional[int] = None, specs: Any = None,
+                       mesh: Any = None) -> tuple[int, Any]:
     """Restore into the structure of ``template``; returns (step, tree).
 
     Every leaf comes back as a tensor of its stored dtype, on the device of
-    the template's leaf when that is a tensor, else on the CPU.
+    the template's leaf when that is a tensor, else on the CPU. With
+    ``specs`` (a tree of ``PartitionSpec``s like ``template``) and a
+    ``mesh``, each leaf is this rank's block of the stored one
+    (``sharding.block``: zero-padded to ``local_shape``).
     """
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -134,11 +148,16 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    if specs is not None:
+        from ..sharding.rules import _tree_specs, block
+
+        spec_of = [spec for _, spec in _tree_specs(template, specs)]
     out = []
-    for pth, leaf in _leaves(template):
+    for i, (pth, leaf) in enumerate(_leaves(template)):
         key = _SEP.join(pth)
         rec = manifest["leaves"][key]
-        arr = np.load(os.path.join(path, rec["file"]))
+        arr = np.load(os.path.join(path, rec["file"]),
+                      mmap_mode=None if specs is None else "r")
         stored = rec.get("stored_dtype", str(arr.dtype))
         if str(arr.dtype) != stored:
             raise ValueError(
@@ -146,9 +165,10 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
                 f"stored_dtype {stored!r}; checkpoint corrupt or written "
                 "by an incompatible version")
         if rec["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
+            arr = arr.view(np.int16)
+        t = torch.from_numpy(arr) if specs is None else block(arr, spec_of[i], mesh)
+        if rec["dtype"] == "bfloat16":
+            t = t.view(torch.bfloat16)
         out.append(t.to(leaf.device) if isinstance(leaf, torch.Tensor) else t)
     return step, _rebuild(template, iter(out))
 
@@ -222,3 +242,37 @@ class AsyncCheckpointer:
     def _gc(self) -> None:
         for s in _steps(self.ckpt_dir)[: -self.keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
+
+
+class ShardedCheckpointer:
+    """``AsyncCheckpointer``'s interface for a state distributed over a
+    ``DeviceMesh`` under ``specs`` (``like``: the one-rank state's shapes,
+    e.g. its stand-in on the meta device). ``save`` is called by every rank:
+    it gathers the full leaves to rank 0 (``sharding.gather_state``, the
+    blocks staged through host memory), whose ``AsyncCheckpointer`` writes
+    them in the one-rank format; ``timings`` adds each save's gather
+    seconds. Restore with ``restore_checkpoint(..., specs=, mesh=)``."""
+
+    def __init__(self, ckpt_dir: str, specs: Any, like: Any, mesh: Any, keep: int = 3):
+        import torch.distributed as dist
+
+        self.ckpt_dir, self.specs, self.like, self.mesh = ckpt_dir, specs, like, mesh
+        self.inner = AsyncCheckpointer(ckpt_dir, keep) if dist.get_rank() == 0 else None
+
+    @property
+    def timings(self) -> list[dict]:
+        return self.inner.timings if self.inner is not None else []
+
+    def save(self, step: int, tree: Any, *, extra: Optional[dict] = None) -> None:
+        from ..sharding.rules import gather_state
+
+        t0 = time.perf_counter()
+        full = gather_state(tree, self.specs, self.mesh, self.like)
+        if self.inner is not None:
+            gather_s = time.perf_counter() - t0
+            self.inner.save(step, full, extra=extra)
+            self.inner.timings[-1]["gather_s"] = gather_s
+
+    def wait(self) -> None:
+        if self.inner is not None:
+            self.inner.wait()

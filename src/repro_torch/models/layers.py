@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..kernels.common import needs_grad
+from ..sharding import collectives as tp
 
 
 # --- init ------------------------------------------------------------------
@@ -40,11 +41,17 @@ def ninit(shape, *, generator: torch.Generator, scale: float | None = None,
     return (w * scale).to(dtype)
 
 
+#: while ``models.model.init_blocks`` builds a model: the function each new
+#: parameter passes through before its module keeps it (the last one set)
+_ON_PARAM: list = []
+
+
 def param(t: torch.Tensor) -> nn.Parameter:
     """A parameter that asks for no gradient: the model serves as built, and
     training differentiates the ``TrainState``'s tensors put in its place
     (``repro_torch.training``)."""
-    return nn.Parameter(t, requires_grad=False)
+    p = nn.Parameter(t, requires_grad=False)
+    return _ON_PARAM[-1](p) if _ON_PARAM else p
 
 
 # --- norms -----------------------------------------------------------------
@@ -172,8 +179,13 @@ class MLP(nn.Module):
         self.w_gate = param(ninit((d, ff), **kw)) if act in ("swiglu", "geglu") else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a mesh ``w_gate`` / ``w_up`` are column-parallel and
+        ``w_down`` row-parallel over ``model`` (each rank's ff block; a
+        zero-padded block adds zeros), each gathered over ``data``."""
+        x = tp.copy_to_model(x)
+        w_up, w_down = tp.weight(self, "w_up"), tp.weight(self, "w_down")
         if self.w_gate is not None:
-            h = act_fn(self.act, x @ self.w_gate) * (x @ self.w_up)
+            h = act_fn(self.act, x @ tp.weight(self, "w_gate")) * (x @ w_up)
         else:
-            h = act_fn(self.act, x @ self.w_up)
-        return h @ self.w_down
+            h = act_fn(self.act, x @ w_up)
+        return tp.reduce_from_model(h @ w_down)

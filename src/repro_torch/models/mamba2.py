@@ -6,6 +6,11 @@ CUDA tensor, ``ssd_chunked`` (the plain version, re-exported here under the
 reference's name) on a CPU tensor. Decode is one recurrent step in plain
 PyTorch on either device, as in the reference.
 
+Under a mesh the block runs its rank's share of the heads (``model``):
+``in_proj`` column-parallel by heads, the B / C projections computed in
+full on every rank, the gated RMSNorm's mean of squares summed over
+``model``, ``out_proj`` row-parallel; K9 sees plain local tensors.
+
 Shapes follow the paper: x (B, S, H, P), dt (B, S, H), A (H,) negative, one
 B/C group (B, S, N), state (B, H, P, N) fp32.
 """
@@ -16,6 +21,7 @@ from torch import nn
 
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import ssd_chunked
+from ..sharding import collectives as tp
 from .layers import ninit, param, rms_norm
 
 __all__ = ["Mamba", "softplus", "ssd_chunked", "ssd_decode_step"]
@@ -62,33 +68,70 @@ class Mamba(nn.Module):
         self.norm = param(torch.zeros((di,), dtype=dtype, device=device))
         self.out_proj = param(ninit((di, d), **kw))
 
-    def _split(self, zxbcdt: torch.Tensor):
-        di, ns = self.cfg.d_inner, self.cfg.ssm_state
+    def _split(self, zxbcdt: torch.Tensor, di: int | None = None):
+        di, ns = di or self.cfg.d_inner, self.cfg.ssm_state
         return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * ns], zxbcdt[..., 2 * di + 2 * ns:]
 
-    def _gate_out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        y = rms_norm(y * torch.nn.functional.silu(z), self.norm, self.cfg.norm_eps)
-        return y @ self.out_proj
+    def _gate_out(self, y: torch.Tensor, z: torch.Tensor, p: dict) -> torch.Tensor:
+        g = y * torch.nn.functional.silu(z)
+        if tp.model_axis().size > 1:
+            y = tp.rms_norm_model(g, p["norm"], self.cfg.norm_eps, self.cfg.d_inner)
+        else:
+            y = rms_norm(g, p["norm"], self.cfg.norm_eps)
+        return y @ p["out_proj"]
+
+    def _local(self) -> dict:
+        """The leaves this rank computes with and its head count: the stored
+        ones outside a sharded run. On a mesh, its share of the heads
+        (``model``): ``in_proj``'s z, x and dt columns of those heads and
+        the shared B, C columns (the [z | x B C | dt] layout cuts across
+        ``model``'s blocks, so the matrix is gathered over ``model`` too),
+        the conv's x channels of those heads and B, C, the per-head vectors
+        and the norm gain sliced from their replicated leaves; ``out_proj``
+        row-parallel."""
+        cfg = self.cfg
+        di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+        if tp.active() is None:
+            return dict(in_proj=self.in_proj, conv_w=self.conv_w, a_log=self.a_log,
+                        dt_bias=self.dt_bias, d_skip=self.d_skip, norm=self.norm,
+                        out_proj=self.out_proj, nh=nh)
+        h_lo, h_hi = tp.model_part(nh, "Mamba-2 heads")
+        c_lo, c_hi = h_lo * hp, h_hi * hp
+        w = tp.weight(self, "in_proj", gather_model=True)
+        cw = tp.weight(self, "conv_w", gather_model=True)
+        if tp.model_axis().size > 1:
+            dt0 = 2 * di + 2 * ns
+            w = torch.cat([w[:, c_lo:c_hi], w[:, di + c_lo:di + c_hi], w[:, 2 * di:dt0],
+                           w[:, dt0 + h_lo:dt0 + h_hi]], dim=1)
+            cw = torch.cat([cw[:, c_lo:c_hi], cw[:, di:]], dim=1)
+        return dict(in_proj=w, conv_w=cw,
+                    a_log=tp.copy_to_model(self.a_log)[h_lo:h_hi],
+                    dt_bias=tp.copy_to_model(self.dt_bias)[h_lo:h_hi],
+                    d_skip=tp.copy_to_model(self.d_skip)[h_lo:h_hi],
+                    norm=tp.copy_to_model(self.norm)[c_lo:c_hi],
+                    out_proj=tp.weight(self, "out_proj"), nh=h_hi - h_lo)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         """Full sequence. u (B, S, d_model) -> (B, S, d_model)."""
         cfg = self.cfg
         bsz, s, _ = u.shape
-        di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-        z, xbc, dt = self._split(u @ self.in_proj)
-        k = cfg.ssm_conv
+        ns, hp, k = cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_conv
+        p = self._local()
+        nh = p["nh"]
+        di = nh * hp
+        z, xbc, dt = self._split(tp.copy_to_model(u) @ p["in_proj"], di)
         xbc_pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
-        conv = xbc_pad[:, 0:s] * self.conv_w[0]  # the reference's order of terms
+        conv = xbc_pad[:, 0:s] * p["conv_w"][0]  # the reference's order of terms
         for i in range(1, k):
-            conv = conv + xbc_pad[:, i:i + s] * self.conv_w[i]
+            conv = conv + xbc_pad[:, i:i + s] * p["conv_w"][i]
         conv = torch.nn.functional.silu(conv)
         x, b, c = conv[..., :di], conv[..., di:di + ns], conv[..., di + ns:]
-        dt = softplus(dt.float() + self.dt_bias)  # (B, S, nh)
-        a = -torch.exp(self.a_log)
+        dt = softplus(dt.float() + p["dt_bias"])  # (B, S, nh)
+        a = -torch.exp(p["a_log"])
         x = x.reshape(bsz, s, nh, hp)
         y, _ = ssd_ops.ssd(x.contiguous(), dt, a, b, c, chunk=CHUNK)
-        y = y + x * self.d_skip[None, None, :, None].to(y.dtype)
-        return self._gate_out(y.reshape(bsz, s, di), z)
+        y = y + x * p["d_skip"][None, None, :, None].to(y.dtype)
+        return tp.reduce_from_model(self._gate_out(y.reshape(bsz, s, di), z, p))
 
     def decode(self, u_t: torch.Tensor, cache: dict) -> torch.Tensor:
         """One token. u_t (B, 1, d); ``cache`` {"conv": (B, k - 1, conv_dim),
@@ -107,4 +150,4 @@ class Mamba(nn.Module):
         y = y + x.reshape(bsz, nh, hp) * self.d_skip[None, :, None].to(y.dtype)
         cache["conv"] = window[:, 1:]
         cache["state"] = new_state.to(cache["state"].dtype)
-        return self._gate_out(y.reshape(bsz, di), z)[:, None, :]
+        return self._gate_out(y.reshape(bsz, di), z, self._local())[:, None, :]

@@ -21,18 +21,31 @@ the reference's per-layer ``jax.checkpoint``. ``loss_fn`` is the
 reference's chunked cross-entropy. Serving runs without a graph
 (``decode_step`` and ``serving.prefill_logits`` under ``torch.no_grad``).
 
+Under a ``DeviceMesh`` of more than one rank (``sharding.activate_mesh``)
+the forward and ``loss_fn`` run sharded, each tensor the rank's block
+(``sharding.collectives``): the batch rows over ``data``, every leaf
+stored as its ``param_specs`` block and gathered over ``data`` where it is
+used (FSDP), attention and Mamba-2 heads, MLP columns and the vocabulary
+split over ``model`` (tensor parallelism; ``logits`` gives the rank's
+vocabulary block). MoE layers run only where ``model`` is 1, and decode
+not at all (ROADMAP A).
+
 Decode caches are plain dicts, one per layer, updated in place by
 ``decode_step`` (the reference returns a new cache pytree).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.rules import MeshCtx, PartitionSpec, logical_to_spec
+from ..sharding import collectives as tp
+from ..sharding import rules
+from ..sharding.rules import MeshCtx, PartitionSpec, logical_to_spec, under_mesh_ctx
+from . import layers
 from .attention import attention, decode_attention, nystrom_attention
 from .config import ArchConfig
 from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
@@ -69,16 +82,45 @@ class Attention(nn.Module):
             self.q_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
             self.k_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
 
+    def _weights(self) -> tuple:
+        """(wq, wk, wv, wo, q_norm, k_norm, q heads, kv heads) this rank
+        computes with: the stored leaves outside a sharded run; on a mesh
+        its share of the q heads (``model``) and the kv heads they read,
+        gathered over ``model`` too where those do not line up with its
+        block (fewer kv heads than ``model`` ranks: gemma-2b)."""
+        cfg = self.cfg
+        norms = (self.q_norm, self.k_norm) if cfg.qk_norm else (None, None)
+        if tp.active() is None:
+            return (self.wq, self.wk, self.wv, self.wo, *norms, cfg.n_heads, cfg.n_kv_heads)
+        q_lo, q_hi = tp.model_part(cfg.n_heads, "q heads")
+        hq, hkv, group = q_hi - q_lo, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        if hkv % tp.model_axis().size == 0:
+            wk, wv = tp.weight(self, "wk"), tp.weight(self, "wv")
+            kv = hkv // tp.model_axis().size
+        else:
+            kv_lo, kv_hi = q_lo // group, (q_hi - 1) // group + 1
+            kv = kv_hi - kv_lo
+            if hq % kv or any((q_lo + i) // group - kv_lo != i // (hq // kv) for i in range(hq)):
+                raise NotImplementedError(
+                    f"q heads {q_lo}-{q_hi} do not group evenly over kv heads {kv_lo}-{kv_hi} "
+                    "(ROADMAP A)")
+            cols = slice(kv_lo * cfg.head_dim, kv_hi * cfg.head_dim)
+            wk = tp.weight(self, "wk", gather_model=True)[:, cols]
+            wv = tp.weight(self, "wv", gather_model=True)[:, cols]
+        norms = tuple(n if n is None else tp.copy_to_model(n) for n in norms)
+        return (tp.weight(self, "wq"), wk, wv, tp.weight(self, "wo"), *norms, hq, kv)
+
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor | None,
-             mrope_pos: torch.Tensor | None):
+             mrope_pos: torch.Tensor | None, w: tuple | None = None):
         cfg = self.cfg
         b, s, _ = x.shape
-        q = lowp(x @ self.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        k = lowp(x @ self.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = lowp(x @ self.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        wq, wk, wv, _, q_norm, k_norm, hq, hkv = self._weights() if w is None else w
+        q = lowp(x @ wq).reshape(b, s, hq, cfg.head_dim)
+        k = lowp(x @ wk).reshape(b, s, hkv, cfg.head_dim)
+        v = lowp(x @ wv).reshape(b, s, hkv, cfg.head_dim)
         if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm, cfg.norm_eps)
-            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+            q = rms_norm(q, q_norm, cfg.norm_eps)
+            k = rms_norm(k, k_norm, cfg.norm_eps)
         if cfg.pos == "rope":
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -91,13 +133,14 @@ class Attention(nn.Module):
                 mrope_pos: torch.Tensor | None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, positions, mrope_pos)
+        w = self._weights()
+        q, k, v = self._qkv(tp.copy_to_model(x), positions, mrope_pos, w)
         if cfg.attention_impl == "bless_nystrom" and s > cfg.nystrom_landmarks:
             out = nystrom_attention(q, k, v, landmarks=cfg.nystrom_landmarks)
         else:
             out = attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk,
                             softcap=cfg.attn_logit_softcap)
-        return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ self.wo
+        return tp.reduce_from_model(out.reshape(b, s, w[6] * cfg.head_dim) @ w[3])
 
     def decode(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                length: torch.Tensor | None, mrope_pos: torch.Tensor | None) -> torch.Tensor:
@@ -194,6 +237,15 @@ class LM(nn.Module):
             self.out_head = param(ninit((d, vp), **kw))
         self.layers = nn.ModuleList(Block(cfg, i % cfg.layer_period, **kw)
                                     for i in range(cfg.n_layers))
+        # each leaf's full shape and logical axes, by module (read by
+        # ``collectives.weight`` under a mesh) and by state_dict name
+        self.logical = {}
+        for prefix, mod in self.named_modules():
+            mod.shard_layout = {}
+            for leaf, t in mod.named_parameters(recurse=False):
+                name = f"{prefix}.{leaf}" if prefix else leaf
+                self.logical[name] = _logical(cfg, name, t.ndim)
+                mod.shard_layout[leaf] = (tuple(t.shape), self.logical[name])
 
     @property
     def device(self) -> torch.device:
@@ -204,7 +256,11 @@ class LM(nn.Module):
         if not cfg.embed_inputs:  # audio: precomputed frame embeddings
             x = batch["frames"].to(model_dtype(cfg))
             return x + sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
-        x = self.embed[batch["tokens"]]
+        if tp.model_axis().size > 1:
+            table = tp.weight(self, "embed")
+            x = tp.embed_lookup(table, batch["tokens"], tp.model_axis().rank * table.shape[0])
+        else:
+            x = tp.weight(self, "embed")[batch["tokens"]]
         if cfg.extra_image_tokens:  # vlm: patch embeds occupy a static prefix
             n = cfg.extra_image_tokens
             x = torch.cat([batch["pixel_embeds"].to(x.dtype), x[:, n:]], dim=1)
@@ -226,19 +282,25 @@ class LM(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, positions, mrope_pos, use_reentrant=False)
+                x = checkpoint(under_mesh_ctx(layer), x, positions, mrope_pos,
+                               use_reentrant=False)
             else:
                 x = layer(x, positions, mrope_pos)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def head(self) -> torch.Tensor:
         """The output projection (d, padded vocab): the tied embedding's
-        transpose or ``out_head``."""
-        return self.embed.T if self.cfg.tie_embeddings else self.out_head
+        transpose or ``out_head``; under a mesh this rank's vocabulary
+        columns (``model``), gathered over ``data``."""
+        if self.cfg.tie_embeddings:
+            return tp.weight(self, "embed").T
+        return tp.weight(self, "out_head")
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Hidden states (..., d) -> logits (..., padded vocab)."""
-        return h @ self.head()
+        """Hidden states (..., d) -> logits (..., padded vocab); under a
+        mesh the rank's vocabulary block (columns from ``model``'s rank
+        times the block's width)."""
+        return tp.copy_to_model(h) @ self.head()
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> list[dict[str, Any]]:
         """One dict per layer: {"k", "v"} (B, max_len, Hkv, head_dim) for
@@ -269,6 +331,9 @@ class LM(nn.Module):
         Updates ``cache`` in place; returns logits (B, padded vocab)."""
         if not self.cfg.has_decode:
             raise ValueError(f"{self.cfg.name} is encoder-only")
+        if tp.active() is not None:
+            raise NotImplementedError("decode under a mesh of more than one rank is not ported "
+                                      "yet (cache_specs, seq_shard: ROADMAP A)")
         b = token.shape[0]
         pos = torch.as_tensor(pos, device=self.device).reshape(-1).expand(b)
         if length is not None:
@@ -302,6 +367,40 @@ _SPEC_RULES: dict[str, tuple[str | None, ...]] = {
 }
 
 
+def init_blocks(cfg: ArchConfig, specs: dict[str, PartitionSpec], mesh, *, seed: int = 0,
+                device: str = "cuda", coords: dict[str, int] | None = None
+                ) -> dict[str, torch.Tensor]:
+    """This rank's blocks (``sharding.block`` under ``specs`` on ``mesh``; the
+    rank at ``coords`` if given) of ``LM(cfg, seed=seed, device=device)``'s
+    params, in ``named_parameters`` order: the same bits as
+    ``distribute_state`` of that model, without ever holding it. The model
+    is built in its construction order with each leaf drawn whole from the
+    seed's generator, cut to its block and dropped before the next is drawn,
+    so a rank holds at most one whole leaf beside its blocks."""
+    made: list[nn.Parameter] = []
+    layers._ON_PARAM.append(lambda p: made.append(p) or p)
+    try:
+        names = {id(p): n for n, p in LM(cfg, device="meta").named_parameters()}
+    finally:
+        layers._ON_PARAM.pop()
+    order = iter([names[id(p)] for p in made])
+    blocks: dict[str, torch.Tensor] = {}
+
+    def keep(p: nn.Parameter) -> nn.Parameter:
+        name = next(order)
+        with torch.no_grad():
+            blocks[name] = rules.block(p, specs[name], mesh, coords).clone(
+                memory_format=torch.contiguous_format)
+        return nn.Parameter(blocks[name], requires_grad=False)
+
+    layers._ON_PARAM.append(keep)
+    try:
+        LM(cfg, seed=seed, device=device)
+    finally:
+        layers._ON_PARAM.pop()
+    return {n: blocks[n] for n in names.values()}
+
+
 def _moe_spec(cfg: ArchConfig, name: str) -> tuple[str | None, ...]:
     mode = cfg.moe_mode(SPEC_TP)
     if name in ("w_gate", "w_up"):
@@ -311,24 +410,27 @@ def _moe_spec(cfg: ArchConfig, name: str) -> tuple[str | None, ...]:
             "replicate": (None, None, "fsdp")}[mode]
 
 
+def _logical(cfg: ArchConfig, name: str, ndim: int) -> tuple[str | None, ...]:
+    """The logical axes of the ``state_dict`` entry ``name`` (``ndim`` dims)."""
+    keys = name.split(".")
+    leaf = keys[-1]
+    in_moe = "moe" in keys and "shared" not in keys  # shared expert = dense MLP
+    if in_moe and leaf in ("w_gate", "w_up", "w_down"):
+        logical = _moe_spec(cfg, leaf)
+    elif leaf in _SPEC_RULES:
+        logical = _SPEC_RULES[leaf]
+    else:
+        logical = (None,) * ndim
+    if len(logical) != ndim:
+        raise ValueError(f"{name}: {ndim} dimensions against the rule {logical}")
+    return logical
+
+
 def param_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict[str, PartitionSpec]:
     """PartitionSpec of every ``LM(cfg).state_dict()`` entry, by name (built
     from a weightless ``LM(cfg, device="meta")``)."""
-    out = {}
-    for name, t in LM(cfg, device="meta").state_dict().items():
-        keys = name.split(".")
-        leaf = keys[-1]
-        in_moe = "moe" in keys and "shared" not in keys  # shared expert = dense MLP
-        if in_moe and leaf in ("w_gate", "w_up", "w_down"):
-            logical = _moe_spec(cfg, leaf)
-        elif leaf in _SPEC_RULES:
-            logical = _SPEC_RULES[leaf]
-        else:
-            logical = (None,) * t.ndim
-        if len(logical) != t.ndim:
-            raise ValueError(f"{name}: {tuple(t.shape)} against the rule {logical}")
-        out[name] = logical_to_spec(*logical, ctx=ctx)
-    return out
+    lm = LM(cfg, device="meta")
+    return {name: logical_to_spec(*lm.logical[name], ctx=ctx) for name in lm.state_dict()}
 
 
 def cache_specs(cfg: ArchConfig, ctx: MeshCtx, *,
@@ -363,13 +465,26 @@ def _chunk_nll(hc: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
     return -torch.sum(ll)
 
 
+def _chunk_nll_vocab(hc: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                     valid: torch.Tensor, lo: int) -> torch.Tensor:
+    """``_chunk_nll`` of a vocabulary split over ``model`` (``w`` holds the
+    columns from ``lo``): its log-sum-exp reduced over the axis."""
+    logits = (hc @ w).float()
+    logits = torch.where(valid, logits, logits.new_full((), -1e30))
+    return tp.vocab_nll(logits, labels, lo)
+
+
 def loss_fn(lm: LM, batch: dict, *, n_chunks: int = 8) -> torch.Tensor:
     """Chunked softmax cross-entropy, the reference's ``loss_fn``: the
     logits exist one sequence chunk at a time ((B, S / n, Vp)), never as
     (B, S, Vp); the chunk sums are added and divided by B S. When a
     gradient is taken each chunk is checkpointed, so its logits are
     recomputed in the backward rather than kept. ``batch`` adds "labels"
-    (B, S) to the forward's inputs."""
+    (B, S) to the forward's inputs.
+
+    Under a mesh ``batch`` holds the rank's rows and the result is its share
+    of the loss: its rows' sum over the global B S (``collectives.sum_over_batch``
+    adds the shares); over ``model`` the cross-entropy is vocabulary-parallel."""
     h = lm(batch)
     b, s, _ = h.shape
     w = lm.head()
@@ -377,12 +492,19 @@ def loss_fn(lm: LM, batch: dict, *, n_chunks: int = 8) -> torch.Tensor:
     if s % n_chunks:
         raise ValueError(f"S = {s} is not a multiple of n_chunks = {n_chunks}")
     sc = s // n_chunks
-    valid = torch.arange(w.shape[1], device=h.device) < lm.cfg.vocab_size
+    plan = tp.active()
+    fn, lo = _chunk_nll, 0
+    if tp.model_axis().size > 1:
+        h = tp.copy_to_model(h)
+        lo = tp.model_axis().rank * w.shape[1]
+        fn = functools.partial(_chunk_nll_vocab, lo=lo)
+    valid = torch.arange(lo, lo + w.shape[1], device=h.device) < lm.cfg.vocab_size
     labels = batch["labels"]
     grad = torch.is_grad_enabled()
     sums = []
     for i in range(n_chunks):
         args = (h[:, i * sc:(i + 1) * sc], labels[:, i * sc:(i + 1) * sc], w, valid)
-        sums.append(checkpoint(_chunk_nll, *args, use_reentrant=False) if grad
-                    else _chunk_nll(*args))
-    return torch.sum(torch.stack(sums)) / (b * s)
+        sums.append(checkpoint(under_mesh_ctx(fn), *args, use_reentrant=False) if grad
+                    else fn(*args))
+    rows = b * (plan.batch_ways if plan is not None else 1)
+    return torch.sum(torch.stack(sums)) / (rows * s)

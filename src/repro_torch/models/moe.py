@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..sharding import collectives as tp
 from .layers import MLP, act_fn, ninit, param
 
 
@@ -70,20 +71,29 @@ class MoE(nn.Module):
         self.shared = MLP(d, shared_ff, act, **kw) if shared_ff else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a mesh whose ``model`` axis is 1 the experts are FSDP only
+        (each leaf gathered over ``data`` where it is used); expert
+        parallelism over ``model`` is not ported (ROADMAP A)."""
+        if tp.model_axis().size > 1:
+            raise NotImplementedError(
+                f"MoE on a model axis of {tp.model_axis().size}: expert parallelism (its "
+                "all-to-all) is not ported yet (ROADMAP A); run MoE models with model = 1")
         b, s, d = x.shape
         e, k = self.n_experts, self.top_k
         cap = capacity(s, k, self.capacity_factor, e)
+        w_up, w_down = tp.weight(self, "w_up"), tp.weight(self, "w_down")
+        w_gate = tp.weight(self, "w_gate") if self.w_gate is not None else None
         slot, gate = route_group(x, self.router, k, cap, e)
         rows = torch.arange(b, device=x.device)[:, None]
         src = torch.arange(s, device=x.device).repeat_interleave(k)  # token of each choice
         buf = x.new_zeros((b, e * cap + 1, d))
         buf[rows, slot] = x[:, src]  # dropped choices all land in the discarded last row
         eb = buf[:, :-1].reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-        if self.w_gate is not None:
-            h = act_fn(self.act, torch.bmm(eb, self.w_gate)) * torch.bmm(eb, self.w_up)
+        if w_gate is not None:
+            h = act_fn(self.act, torch.bmm(eb, w_gate)) * torch.bmm(eb, w_up)
         else:
-            h = act_fn(self.act, torch.bmm(eb, self.w_up))
-        out_e = torch.bmm(h, self.w_down).reshape(e, b, cap, d).transpose(0, 1)
+            h = act_fn(self.act, torch.bmm(eb, w_up))
+        out_e = torch.bmm(h, w_down).reshape(e, b, cap, d).transpose(0, 1)
         out_e = torch.cat([out_e.reshape(b, e * cap, d), x.new_zeros((b, 1, d))], dim=1)
         contrib = out_e[rows, slot] * gate[..., None].to(out_e.dtype)  # (B, S k, d)
         out = contrib.reshape(b, s, k, d).sum(dim=2)

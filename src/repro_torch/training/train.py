@@ -15,7 +15,16 @@ reference's ``lax.scan`` does. Metrics: ``loss``, ``lr`` and ``grad_norm``
 
 The step updates the state's tensors in place (``optim.adamw``) and
 returns it. ``grad_shardings`` pins the reference's fp32 accumulator to a
-mesh sharding; on one card it has no meaning and only ``None`` is taken.
+mesh sharding; on one card it has no meaning (and under a mesh the port's
+gradients keep the params' layout), so only ``None`` is taken.
+
+Under a ``DeviceMesh`` of more than one rank (``sharding.activate_mesh``)
+the same step runs sharded: the state holds each rank's blocks
+(``sharding.distribute_state``), the batch the rank's rows; the backward's
+reduce-scatters sum the split leaves' gradients over ``data``,
+``collectives.finish_grads`` sums the replicated ones, the norm counts each
+element once across ranks, and AdamW updates each rank's blocks with the
+global norm's clip. The loss is the global one on every rank.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from torch import nn
 from ..checkpoint.ckpt import _leaves
 from ..models import LM, loss_fn
 from ..models.config import ArchConfig
-from ..optim import OptConfig, adamw_init, adamw_update, global_norm
+from ..optim import OptConfig, adamw_init, adamw_update
+from ..sharding import collectives as tp
 
 
 class TrainState(NamedTuple):
@@ -74,14 +84,17 @@ def loss_and_grads(lm: LM, params: dict[str, torch.Tensor], batch: dict, *,
                    loss_chunks: int = 8) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(``loss_fn`` of ``lm``'s model at ``params``, its gradient by name):
     the reference's ``jax.value_and_grad(loss_fn)``. The params are set to
-    require a gradient (a restored state's tensors come without the flag)."""
+    require a gradient (a restored state's tensors come without the flag).
+    Under a mesh: the global loss, and each rank's blocks of the full
+    gradient."""
     for p in params.values():
         p.requires_grad_(True)
     with torch.enable_grad():
         loss, grads = torch.func.functional_call(
             _Objective(lm, loss_chunks), {f"lm.{k}": p for k, p in params.items()},
             (batch, list(params.values())))
-    return loss, dict(zip(params, grads))
+    grads = tp.finish_grads(dict(zip(params, grads)), lm.logical)
+    return tp.sum_over_batch(loss), grads
 
 
 def make_train_step(cfg_or_lm: ArchConfig | LM, opt_cfg: OptConfig, *, microbatches: int = 1,
@@ -122,7 +135,7 @@ def make_train_step(cfg_or_lm: ArchConfig | LM, opt_cfg: OptConfig, *, microbatc
             loss = loss / microbatches
             for t in grads.values():
                 t.div_(microbatches)
-        gnorm = global_norm(grads)
+        gnorm = tp.global_norm(grads, lm.logical)
         params, opt = adamw_update(state.params, grads, state.opt, opt_cfg, grad_norm=gnorm)
         metrics = {"loss": loss, "lr": opt_cfg.lr(opt["step"]), "grad_norm": gnorm}
         return TrainState(params, opt), metrics
