@@ -2,12 +2,13 @@
 """Drive the PyTorch/CUDA port's FALKON, FALKON-BLESS, k-fold CV, classifier,
 KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
 serving path, BLESS-Nystrom attention in gemma-2b, LM training (gemma-2b,
-mamba2-370m), the training launcher, GPipe and the LM sharded across ranks
-on one H100.
+mamba2-370m), the training launcher, GPipe, the LM sharded across ranks,
+MoE across the model axis and decode under a serving mesh on one H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
-    python3 chip_smoke.py --phase serve|train|launch|shard|shard_launch [--tree DIR]   # one phase alone (of DIR's
-                                     # checkout: an A/B of two commits on one card)
+    python3 chip_smoke.py --phase serve|train|launch|shard|shard_launch|moe_shard|serve_shard
+                         [--tree DIR]   # one phase alone (of DIR's checkout: an A/B of two
+                                        # commits on one card)
 
 Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
 
@@ -260,6 +261,43 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 first mu on both sides) within 1e-4 of its max; each rank's
                 CollectiveMeter bytes the closed form shard_step_bytes; K8
                 and K9 launched in every layer on every rank (twice: remat).
+ 18. moe_shard  MoE across the model axis: one fp32 gradient
+                (loss_and_grads, no optimizer state) on a (data 2, model 2)
+                mesh of four gloo ranks sharing the card, one row of 512
+                tokens a data rank, each rank's blocks drawn from --seed
+                leaf by leaf, against the same gradient unsharded on the
+                card once the ranks have exited. jamba-v0.1-52b at full
+                width cut to 2 layers (Mamba + dense MLP, Mamba + MoE; ep:
+                8 of 16 experts a rank; K9 in both) and granite-moe-3b-a800m
+                cut to 2 layers (tp forced: 256 of each of the 40 experts'
+                512 ff columns a rank, top_k 8; K8 on 12 of 24 q / 4 of 8 kv
+                heads). Gates: loss within 1e-5 relative; every gradient
+                leaf within 1e-4 of its max; each rank's bytes
+                shard_step_bytes (no norm); K8 / K9 in every layer on every
+                rank, twice (remat). Printed: peak memory, dropped share.
+ 19. serve_shard decode under the serving mesh (sharding.serve_ctx), four
+                gloo ranks sharing the card, each rank's blocks drawn from
+                --seed one rank at a time, fp32. The unsharded model runs
+                first on the card, every decode_step call recorded with its
+                tokens, positions and logits; then the ranks run the same
+                entry points with their own tokens and MoE routing, each
+                call held to the unsharded call of the same index. (a)
+                jamba-v0.1-52b at full width cut to 5 layers (4 Mamba, 1
+                attention, 2 MoE in ep: every kind of layer of its 8-layer
+                period, whose 4 MoE layers exceed the card in fp32 on four
+                ranks), (data 2, model 2), seq_model, cache 2 048:
+                prefill_logits of 4 x 32 tokens (K8, K9 on every rank);
+                ServeEngine with 4 slots: 2 requests of 32 tokens, a third
+                after 4 steps, 16 steps. (b) gemma-2b at full width and
+                depth, one sequence, seq_shard_wide over all four ranks,
+                cache 32 768: prefill_logits of 128 tokens (K8), prefill,
+                32 greedy steps. Gates: prefill_logits and every decode
+                call's logits within 1e-4 of max, every call fed the
+                unsharded call's tokens and positions, the same outputs
+                (the engine's tokens per slot, the greedy tokens); each
+                rank's cache bytes the dry run's, its bytes a step
+                decode_step_bytes, no plain call on the card in the
+                forward.
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -268,7 +306,9 @@ max (beyond the fp32 TorchBackend's own distance from the fp64 referee);
 K8 2e-5 (bf16 2e-2) and K9 2e-4 (bf16 3e-2) * max|ref| (tests/test_kernels.py),
 and K8 also per query row: max|out_row - ref_row| <= the same factor *
 max|ref_row| (a causal row over many keys has outputs far below row 0's);
-decode against forward 5e-3 * max|logit| (tests/test_models.py); Nystrom
+decode against forward 5e-3 * max|logit| (tests/test_models.py); the
+sharded LM (phases 17-19) 1e-5 relative loss, 1e-4 * each gradient's max,
+decode logits 1e-4 * max (fp32) against the unsharded run; Nystrom
 attention card against CPU 1e-3 * max|out|; a training step's loss card
 against CPU 1e-4 relative, each gradient 1e-3 * its max|g|.
 Any failed phase exits non-zero. The line before the last is the kernels'
@@ -277,6 +317,7 @@ JSON record; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -3312,7 +3353,8 @@ TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen3-32b", 2
 TP_REFEREED = ("mamba2-370m",)
 
 
-def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: int) -> dict:
+def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: int, *,
+                     norm: bool = True) -> dict:
     """Per-rank bytes of one sharded train step's collectives on a (data =
     ``dp``, model = ``mp``) mesh, ``rows`` x ``seq`` tokens on the rank, in
     ``CollectiveMeter``'s terms: the closed form of ``sharding.collectives``'
@@ -3331,11 +3373,20 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
     one each, and per loss chunk three of its (rows, chunk) statistics. Under
     remat each layer's forward runs twice, its trailing all-reduce once (the
     recompute stops at the last tensor the backward needs), and each loss
-    chunk twice. Over ``data`` (dp > 1): the loss (4 B) and one all-reduce of
-    every leaf not split over ``data`` (its gradient). The norm: one
-    all-reduce per split axis of a float per group of leaves split alike."""
+    chunk twice. A MoE layer split over ``model`` (``ep``: experts,
+    ``tp``: each expert's ff columns; ``cfg.moe_mode(SPEC_TP)``) gathers
+    its rank's block of each expert leaf over ``data`` and adds one
+    forward all-reduce of the partial combines and, backward, one of its
+    input's gradient and one of the fp32 router's (d, E); a ``replicate``
+    MoE gathers whole experts over ``data`` and adds nothing over
+    ``model``, and without a shared expert its layer ends in no
+    all-reduce (the recompute runs through the mixer's). Over ``data``
+    (dp > 1): the loss (4 B) and one all-reduce of
+    every leaf not split over ``data`` (its gradient). The norm (``norm``:
+    a train step's; ``loss_and_grads`` takes none): one all-reduce per
+    split axis of a float per group of leaves split alike."""
     from repro_torch.models import LM
-    from repro_torch.models.model import padded_vocab
+    from repro_torch.models.model import SPEC_TP, padded_vocab
     from repro_torch.sharding import MeshCtx, MeshShape, logical_to_spec
 
     it = 2 if cfg.dtype == "bfloat16" else 4
@@ -3382,12 +3433,17 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
             gather((ff, d), 1, 0, times=times)
             if mp > 1:
                 out["all-reduce"] += times * act + act
+        split = kind == "moe" and cfg.moe_mode(SPEC_TP) != "replicate"
         if kind == "moe":
             e, ff = cfg.n_experts, cfg.d_ff
+            up_dim, down_dim = {"ep": (0, 0), "tp": (2, 1)}.get(cfg.moe_mode(SPEC_TP),
+                                                                 (None, None))
             for _ in range(2 if gated else 1):
-                gather((e, d, ff), 1, None, times=times)
-            gather((e, ff, d), 2, None, times=times)
-        if cfg.remat and mp > 1:
+                gather((e, d, ff), 1, up_dim, times=times)
+            gather((e, ff, d), 2, down_dim, times=times)
+            if split and mp > 1:  # the partial combines, the input's and the router's gradients
+                out["all-reduce"] += times * act + act + 4 * d * e
+        if cfg.remat and mp > 1 and (kind != "moe" or split or cfg.shared_expert_ff):
             out["all-reduce"] -= act  # the layer's last all-reduce is not recomputed
     vp = padded_vocab(cfg)
     if cfg.embed_inputs:
@@ -3415,8 +3471,82 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
     if dp > 1:
         out["all-reduce"] += 4 + 4 * replicated
     for a in ("data", "model"):
-        if sizes[a] > 1 and any(a in k for k in keys):
+        if norm and sizes[a] > 1 and any(a in k for k in keys):
             out["all-reduce"] += 4 * len(keys)
+    return out
+
+
+def decode_step_bytes(cfg, dp: int, mp: int, batch: int, max_len: int, layout: str) -> dict:
+    """Per-rank bytes of one ``LM.decode_step``'s collectives under
+    ``sharding.serve_ctx``'s layout on a (data = ``dp``, model = ``mp``)
+    mesh, in ``CollectiveMeter``'s terms: ``layout`` "seq_model" (the
+    ``batch`` over ``data``, the cache's sequence over ``model``) or
+    "seq_shard_wide" (one sequence, its cache over ``data`` x ``model``).
+    The closed form of the scheme (PERF.md section 6); ``max_len`` moves
+    no byte (each rank attends over its block where it lies).
+
+    Parameters are replicated over ``data`` (no FSDP gathers). Over
+    ``model`` (mp > 1), gathers of activations (all-to-alls whose output
+    is ``mp`` blocks in the model's dtype): per attention layer the new
+    token's q, k and v columns (one collective); per Mamba-2 layer its
+    [z | x B C | dt] projection with the conv window's k - 1 rows of
+    history (one), and the conv weight (k, conv_dim). fp32 all-reduces of the (rows, d) hidden state:
+    the embedding lookup, every row-parallel product (attention's ``wo``,
+    Mamba-2's ``out_proj``, the MLP, a MoE split over ``model`` and its
+    shared expert), plus Mamba-2's gated norm's (rows, 1). The attention's
+    merge: the fp32 partials (acc, max, sum: head_dim + 2 a head) of this
+    rank's heads from every rank of the sequence's axes, an all-to-all
+    over ``model`` when the sequence is split there, then a gather over
+    ``data`` of the ``model`` ranks' pieces (seq_shard_wide)."""
+    from repro_torch.models.model import SPEC_TP
+
+    if layout not in ("seq_model", "seq_shard_wide"):
+        raise ValueError(f"layout {layout!r}")
+    wide = layout == "seq_shard_wide"
+    if wide and batch != 1:
+        raise ValueError("seq_shard_wide serves one sequence")
+    if batch % (1 if wide else dp) or max_len % (dp * mp if wide else mp):
+        raise ValueError(f"{batch} x {max_len} does not split over ({dp}, {mp})")
+    it = 2 if cfg.dtype == "bfloat16" else 4
+    rows = batch if wide else batch // dp
+    d = cfg.d_model
+    ar = 4 * rows * d
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0}
+
+    def up(n, k):
+        return -(-n // k)
+
+    def gather(*shape):  # over model: mp blocks of the last dimension's ceiling piece
+        if mp > 1:
+            out["all-to-all"] += mp * math.prod(shape[:-1]) * up(shape[-1], mp) * it
+
+    if mp > 1:
+        out["all-reduce"] += ar  # the embedding lookup
+    for i in range(cfg.n_layers):
+        if cfg.mixer_kind(i) == "attn":
+            hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            gather(rows, hq * hd)
+            gather(rows, hkv * hd)
+            gather(rows, hkv * hd)
+            part = 4 * rows * (hq // mp) * (hd + 2)  # one rank's partials of a rank's heads
+            if mp > 1:
+                out["all-to-all"] += mp * part
+                out["all-reduce"] += ar
+            if wide and dp > 1:
+                out["all-to-all"] += dp * mp * part
+        else:
+            di, ns, nh, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+            gather(rows, 2 * di + 2 * ns + nh)
+            gather(rows, k - 1, di + 2 * ns)
+            gather(k, di + 2 * ns)
+            if mp > 1:
+                out["all-reduce"] += ar + 4 * rows
+        kind = cfg.mlp_kind(i)
+        if mp > 1 and (kind == "dense"
+                       or (kind == "moe" and cfg.moe_mode(SPEC_TP) != "replicate")):
+            out["all-reduce"] += ar
+        if mp > 1 and kind == "moe" and cfg.shared_expert_ff:
+            out["all-reduce"] += ar
     return out
 
 
@@ -3631,8 +3761,9 @@ def shard_launcher(device, cfg, *, world: int = SHARD_WORLD, steps: int = 8, bat
 
 
 def tp_config(arch: str, **overrides):
-    """Phase 17 (b)'s models, in fp32 at full width: qwen3-32b cut to
-    ``TP_DENSE_LAYERS`` layers, mamba2-370m at its full depth."""
+    """Phase 17 (b)'s and 18's models, in fp32 at full width: qwen3-32b cut
+    to ``TP_DENSE_LAYERS`` layers, mamba2-370m at its full depth, any other
+    as ``overrides`` cut it (phase 18: ``MOE_SHARD``)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
@@ -3654,15 +3785,40 @@ def _grads_from_mu(opt: dict, grad_norm: float, clip: float, b1: float) -> dict:
     return {k: v / ((1 - b1) * scale) for k, v in opt["mu"].items()}
 
 
+@contextlib.contextmanager
+def moe_drops():
+    """Within the block, every MoE call's routing observed: the yielded
+    list gets, per call, each row's dropped choices (``route_group``'s
+    slots at the discard row E * C) and the call's number of choices.
+    ``MoE.forward`` looks ``route_group`` up at call time; the module's
+    own function is back on exit, whatever the block raised."""
+    import repro_torch.models.moe as moe
+
+    route, calls = moe.route_group, []
+
+    def counted(x, router, top_k, cap, n_experts):
+        slot, gate = route(x, router, top_k, cap, n_experts)
+        calls.append(((slot == n_experts * cap).sum(dim=1).tolist(), slot.numel()))
+        return slot, gate
+
+    moe.route_group = counted
+    try:
+        yield calls
+    finally:
+        moe.route_group = route
+
+
 def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: dict,
-            mesh: tuple[int, int], rows: int, seq: int, chunks: int, seed: int) -> None:
-    """One rank of phase 17 (b), in its own process: a gloo group on
+            mesh: tuple[int, int], rows: int, seq: int, chunks: int, seed: int,
+            adamw: bool = True) -> None:
+    """One rank of phase 17 (b) and 18, in its own process: a gloo group on
     ``tmp``'s file, a (data, model) ``DeviceMesh``, the params' blocks of
     the seed's model drawn leaf by leaf (``models.init_blocks``, as the
     launcher does), its rows of the batch, one step of ``make_train_step``
-    under a ``CollectiveMeter``; writes ``tmp/rank<r>.pt`` (the step's loss,
-    norm, bytes, launches, and its blocks of the gradient, from AdamW's
-    mu)."""
+    (``adamw``; else ``loss_and_grads``, no optimizer state) under a
+    ``CollectiveMeter``; writes ``tmp/rank<r>.pt`` (the step's loss, norm,
+    bytes, launches, the MoE layers' dropped and routed choices, and its
+    blocks of the gradient, from AdamW's mu where it ran)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3670,10 +3826,10 @@ def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: 
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.launch.roofline import CollectiveMeter
-    from repro_torch.models import init_blocks, param_specs
+    from repro_torch.models import LM, init_blocks, param_specs
     from repro_torch.optim import adamw_init
     from repro_torch.sharding import MeshCtx, collectives, mesh_coords, set_mesh_ctx
-    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training import TrainState, loss_and_grads, make_train_step
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -3700,22 +3856,33 @@ def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: 
         sync(device)
         init_s = time.perf_counter() - t0
         init_peak = torch.cuda.max_memory_allocated() if on_card else None
-        state = TrainState(params, adamw_init(params))
         batch = SyntheticLM(cfg.vocab_size, rows * mesh[0], seq, seed=seed, device=device,
                             shard=(plan.batch_index, plan.batch_ways)).batch_at(0)
-        step = make_train_step(cfg, _tp_opt(), loss_chunks=chunks)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         dist.barrier()
         kernels.reset_launch_counts()
-        with CollectiveMeter() as meter:
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            sync(device)
-            step_s = time.perf_counter() - t0
-        opt = _tp_opt()
-        grads = _grads_from_mu(state.opt, float(m["grad_norm"]), opt.clip_norm, opt.b1)
-        torch.save({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        if adamw:
+            state = TrainState(params, adamw_init(params))
+            step = make_train_step(cfg, _tp_opt(), loss_chunks=chunks)
+            with CollectiveMeter() as meter, moe_drops() as drops:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                sync(device)
+                step_s = time.perf_counter() - t0
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            opt = _tp_opt()
+            grads = _grads_from_mu(state.opt, norm, opt.clip_norm, opt.b1)
+        else:
+            with CollectiveMeter() as meter, moe_drops() as drops:
+                t0 = time.perf_counter()
+                loss, grads = loss_and_grads(LM(cfg, device="meta"), params, batch,
+                                             loss_chunks=chunks)
+                sync(device)
+                step_s = time.perf_counter() - t0
+            loss, norm = float(loss), None
+        routed = [sum(map(sum, (d for d, _ in drops))), sum(n for _, n in drops)]
+        torch.save({"loss": loss, "grad_norm": norm, "routed": routed,
                     "coords": mesh_coords(dmesh), "grads": {k: v.cpu() for k, v in grads.items()},
                     "bytes": meter.bytes, "calls": meter.calls, "step_s": step_s,
                     "init_s": init_s, "init_peak_bytes": init_peak,
@@ -3727,13 +3894,22 @@ def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: 
         dist.destroy_process_group()
 
 
-def _tp_grads(cfg, params: dict, batch: dict, chunks: int) -> tuple[float, dict, float]:
+def _tp_grads(cfg, params: dict, batch: dict, chunks: int,
+              adamw: bool = True) -> tuple[float, dict, float]:
     """(loss, gradients, seconds) of one unsharded ``make_train_step`` on
-    ``params`` (updated in place), the gradients from AdamW's first mu."""
+    ``params`` (updated in place), the gradients from AdamW's first mu; or,
+    without ``adamw``, of ``loss_and_grads``."""
+    from repro_torch.models import LM
     from repro_torch.optim import adamw_init
-    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training import TrainState, loss_and_grads, make_train_step
 
     device = next(iter(params.values())).device
+    if not adamw:
+        sync(device)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(LM(cfg, device="meta"), params, batch, loss_chunks=chunks)
+        sync(device)
+        return float(loss), grads, time.perf_counter() - t0
     state = TrainState(params, adamw_init(params))
     sync(device)
     t0 = time.perf_counter()
@@ -3752,7 +3928,8 @@ def _leaf_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows: int = 1,
                     seq: int = 512, chunks: int = 4, seed: int = 0,
-                    overrides: dict | None = None, timeout: float = 900.0) -> dict:
+                    overrides: dict | None = None, timeout: float = 900.0,
+                    adamw: bool = True, phase: str = "shard (b)") -> dict:
     """Phase 17 (b): one fp32 step of ``make_train_step`` on ``tp_config(arch)``
     over a (data, model) = ``mesh`` of ranks sharing the card (subprocesses,
     gloo, ``file://`` rendezvous), each with ``rows`` rows of ``seq`` tokens
@@ -3765,12 +3942,14 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     such distance from the card's over all leaves; each rank's
     ``CollectiveMeter`` bytes
     ``shard_step_bytes``; on the card K8 and K9 launched in every layer on
-    every rank (twice under remat)."""
+    every rank (twice under remat). Without ``adamw`` (phase 18) the step
+    is ``loss_and_grads`` on both sides: no optimizer state, no norm."""
     import tempfile
 
     from repro_torch import kernels
     from repro_torch.data import SyntheticLM
     from repro_torch.models import LM, param_specs
+    from repro_torch.models.model import SPEC_TP
     from repro_torch.sharding import MeshCtx, MeshShape, block
 
     overrides = overrides or {}
@@ -3784,14 +3963,15 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
             for r in range(world):
                 code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
                         f"chip_smoke.tp_rank({r}, {world}, {tmp!r}, {str(device)!r}, {arch!r}, "
-                        f"{overrides!r}, {tuple(mesh)!r}, {rows}, {seq}, {chunks}, {seed})")
+                        f"{overrides!r}, {tuple(mesh)!r}, {rows}, {seq}, {chunks}, {seed}, "
+                        f"{adamw})")
                 with open(f"{tmp}/rank{r}.log", "w") as out:
                     procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
                                                   stderr=subprocess.STDOUT))
             for p in procs:
                 p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
-            raise PhaseError(f"shard (b): the {world} ranks did not finish in {timeout} s") \
+            raise PhaseError(f"{phase}: the {world} ranks did not finish in {timeout} s") \
                 from None
         finally:
             for p in procs:
@@ -3800,7 +3980,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
         failed = [r for r, p in enumerate(procs) if p.returncode != 0]
         if failed:
             tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
-            raise PhaseError(f"shard (b) {arch}: ranks {failed} failed; rank {failed[0]}'s "
+            raise PhaseError(f"{phase} {arch}: ranks {failed} failed; rank {failed[0]}'s "
                              f"output:\n{tail}")
         ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
     # the same step unsharded on the card, from the same seed
@@ -3812,7 +3992,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     batch = SyntheticLM(cfg.vocab_size, rows * mesh[0], seq, seed=seed,
                         device=str(device)).batch_at(0)
     kernels.reset_launch_counts()
-    loss, ref, ref_s = _tp_grads(cfg, params, batch, chunks)
+    loss, ref, ref_s = _tp_grads(cfg, params, batch, chunks, adamw)
     del params
     noise, cpu_s = {}, None
     if host is not None:  # the referee: the same step on the host CPU
@@ -3820,7 +4000,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
         torch.set_num_threads(os.cpu_count() or threads)
         try:
             _, grads, cpu_s = _tp_grads(cfg, host, {k: v.cpu() for k, v in batch.items()},
-                                        chunks)
+                                        chunks, adamw)
         finally:
             torch.set_num_threads(threads)
         noise = {k: _leaf_err(g, ref[k].cpu()) for k, g in grads.items()}
@@ -3840,7 +4020,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     del ref
     _free(device)
     loss_rel = max(abs(rk["loss"] - loss) for rk in ranks) / abs(loss)
-    expect = shard_step_bytes(cfg, mesh[0], mesh[1], rows, seq, chunks)
+    expect = shard_step_bytes(cfg, mesh[0], mesh[1], rows, seq, chunks, norm=adamw)
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "mesh": list(mesh), "rows_per_rank": rows, "seq": seq, "loss": loss,
            "loss_rel": loss_rel, "grad_worst": worst, "grad_worst_param": worst_name,
@@ -3854,8 +4034,11 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
            "rank_init_peak_bytes": [rk["init_peak_bytes"] for rk in ranks],
            "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
            "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
-           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS}}
-    log(f"shard (b) {cfg.name}: {json.dumps(res)}")
+           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS},
+           "moe_mode": cfg.moe_mode(SPEC_TP) if cfg.n_experts else None,
+           "dropped_share": [rk["routed"][0] / rk["routed"][1] if rk["routed"][1] else None
+                             for rk in ranks]}
+    log(f"{phase} {cfg.name}: {json.dumps(res)}")
     bad = []
     if not loss_rel <= TP_LOSS_RTOL:
         bad.append(f"loss {loss_rel:.3e} relative > {TP_LOSS_RTOL}")
@@ -3874,7 +4057,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
                     bad.append(f"rank {r} launched {n} {rl[n]} times, not "
                                f"{w * (2 if cfg.remat else 1)}")
     if bad:
-        raise PhaseError(f"shard (b) {cfg.name} failed: " + "; ".join(bad))
+        raise PhaseError(f"{phase} {cfg.name} failed: " + "; ".join(bad))
     return res
 
 
@@ -3918,8 +4101,394 @@ def shard_launch(device, *, seed: int = 0) -> dict:
                           world=cards if cards > 1 else SHARD_WORLD)
 
 
+# ---------------------------------------------------------------------------
+# 18. MoE across the model axis; 19. decode and ServeEngine under a mesh
+# ---------------------------------------------------------------------------
+
+#: phase 18's models at full width, cut in depth, each in its MoE layout:
+#: Jamba's first two layers (Mamba + dense MLP, Mamba + MoE; ``ep``, its
+#: own ``moe_mode(16)``), granite-moe's first two (attention + MoE each;
+#: ``tp`` forced: its 512-wide ff makes ``auto`` ``replicate`` at 16).
+MOE_SHARD = {"jamba-v0.1-52b": ({"n_layers": 2}, "ep"),
+             "granite-moe-3b-a800m": ({"n_layers": 2, "moe_sharding": "tp"}, "tp")}
+
+
+def moe_shard(device, *, seed: int = 0, seq: int = 512, overrides: dict | None = None,
+              timeout: float = 900.0) -> dict:
+    """Phase 18: one fp32 gradient (``loss_and_grads``, no optimizer state)
+    of each MOE_SHARD model on a (data, model) = TP_MESH mesh of ranks
+    sharing the card, one row of ``seq`` tokens a data rank, against the
+    same gradient unsharded on the card once the ranks have exited
+    (``tensor_parallel``'s gates: loss, every gradient leaf over its max,
+    each rank's bytes ``shard_step_bytes`` without the norm, K8 / K9 in
+    every layer on every rank, twice under remat). ``overrides`` (the CPU
+    rehearsal's widths) apply to both models."""
+    from repro_torch.models.model import SPEC_TP
+
+    if torch.device(device).type == "cuda":
+        build_kernels()  # the ranks' processes load this build
+    res = {}
+    for arch, (cut, mode) in MOE_SHARD.items():
+        over = {**cut, **(overrides or {})}
+        if tp_config(arch, **over).moe_mode(SPEC_TP) != mode:
+            raise PhaseError(f"moe_shard: {arch} is not in the {mode} layout")
+        t0 = time.perf_counter()
+        res[arch] = tensor_parallel(device, arch, seq=seq, seed=seed, overrides=over,
+                                    adamw=False, phase="moe_shard", timeout=timeout)
+        res[arch]["phase_s"] = time.perf_counter() - t0
+    res["launches"] = {n: sum(res[a]["launches"][n] for a in MOE_SHARD) for n in LM_KERNELS}
+    return res
+
+
+#: phase 19: (a) Jamba at full width cut to SERVE_JAMBA_LAYERS layers, four
+#: slots, the cache's sequence over ``model`` (decode_32k's layout); (b)
+#: gemma-2b at full width and depth, one sequence, its cache over all four
+#: ranks (long_500k's). Both in fp32, on (data 2, model 2).
+SERVE_MESH = (2, 2)
+#: phase 19 (a)'s depth: Mamba + dense MLP, Mamba + MoE, twice, then
+#: attention + dense MLP: every kind of layer of Jamba's 8-layer period.
+#: The whole period's 4 MoE layers hold 90 GB of fp32 expert blocks on four
+#: ranks; in bf16 two orders of the same decode part by more than 3e-2 of
+#: max|logits| even with the MoE routing fixed, so no bf16 gate tells a
+#: right decode from a wrong one.
+SERVE_JAMBA_LAYERS = 5
+SERVE_PARTS = {"a": dict(batch=4, prompt=32, max_len=2048, steps=16, join_at=4,
+                        draw_in_turn=True),  # four ranks' draws at once exceed the card
+               "b": dict(batch=1, prompt=128, max_len=32768, steps=32, draw_in_turn=False)}
+#: phase 19's logits against the unsharded run's, over max|logits| (fp32)
+SERVE_FP32_TOL = 1e-4
+
+
+def serve_config(part: str, **overrides):
+    """Phase 19's models, in fp32: (a) Jamba at full width cut to
+    SERVE_JAMBA_LAYERS layers (4 Mamba, 1 attention, 2 MoE in ``ep``); (b)
+    gemma-2b at full width and depth."""
+    from repro_torch.configs import get_config
+
+    if part == "a":
+        return lm_config(**{"n_layers": SERVE_JAMBA_LAYERS, "dtype": "float32", **overrides})
+    return dataclasses.replace(get_config(NYSTROM_ARCH), dtype="float32", **overrides)
+
+
+def _engine_ops(prompt: int, steps: int, join_at: int, vocab: int, seed: int) -> list:
+    """Phase 19 (a)'s script: requests (slot, prompt) on slots 0 and 1 at
+    the start, slot 2's joining after ``join_at`` steps, ``steps`` steps
+    (None) in all; the engine's other slots idle."""
+    g = torch.Generator().manual_seed(seed + 2)
+    prompts = torch.randint(0, vocab, (3, prompt), generator=g).tolist()
+    ops: list = [(0, prompts[0]), (1, prompts[1])]
+    for i in range(steps):
+        if i == join_at:
+            ops.append((2, prompts[2]))
+        ops.append(None)
+    return ops
+
+
+def _serve_script(lm, part: str, inp: dict, device, rows: slice = slice(None)) -> tuple:
+    """Phase 19's entry points on ``lm`` (its rows ``rows`` of the batch
+    under a mesh): (a) ``ServeEngine`` through ``inp["ops"]``, (b)
+    ``prefill`` of the prompt and ``inp["steps"]`` greedy steps. Returns
+    (the outputs: the engine's tokens per slot, or the greedy tokens per
+    step over the whole batch; the cache)."""
+    from repro_torch.serving import ServeEngine, prefill, sample_greedy
+    from repro_torch.sharding import collectives
+
+    if part == "a":
+        eng = ServeEngine(lm, max_len=inp["max_len"], batch_slots=inp["batch"],
+                          device=str(device))
+        for op in inp["ops"]:
+            eng.step() if op is None else eng.add_request(*op)
+        return [eng.finish(s) for s in range(inp["batch"])], eng.cache
+    prompt = inp["prompt"]
+    logits, cache = prefill(lm, inp["prompts"].to(device)[rows], inp["max_len"])
+    outputs = []
+    for i in range(inp["steps"]):
+        tok = sample_greedy(logits, lm.cfg.vocab_size)
+        outputs.append(collectives.gather_batch(tok).tolist())
+        logits = lm.decode_step(cache, tok, prompt + i, length=prompt + i + 1)
+    return outputs, cache
+
+
+def serve_rank(rank: int, world: int, tmp: str, device: str, part: str, overrides: dict,
+               mesh: tuple[int, int], seed: int) -> None:
+    """One rank of phase 19, in its own process: a gloo group on ``tmp``'s
+    file, ``serve_ctx``'s layout of the part's batch on a (data, model)
+    ``DeviceMesh``, the seed's blocks drawn leaf by leaf (one rank at a
+    time where the part says so: each whole leaf is drawn on the card
+    before it is cut) and held by a weightless LM. Then ``prefill_logits``
+    of the prompts (K8 / K9 counted) and ``_serve_script`` on the mesh, with
+    the rank's own tokens and MoE routing, every ``decode_step`` call's
+    inputs and logits kept on the card, the first under a
+    ``CollectiveMeter``; then each call held to the unsharded run's call of
+    the same index (the tokens and positions fed, the logits of the rank's
+    block). Writes ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+    from repro_torch.launch.roofline import CollectiveMeter
+    from repro_torch.models import LM, init_blocks, param_specs
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.serving import prefill_logits
+    from repro_torch.sharding import collectives, serve_ctx, set_mesh_ctx
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)  # every rank shares the one card
+        torch.cuda.init()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world)
+    try:
+        inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
+        cfg = serve_config(part, **overrides)
+        batch = inp["batch"]
+        dmesh = init_device_mesh(torch.device(device).type, mesh,
+                                 mesh_dim_names=("data", "model"))
+        ctx = serve_ctx(dmesh, batch)
+        set_mesh_ctx(ctx)
+        plan = collectives.active()
+        per = batch // plan.batch_ways
+        rows = slice(plan.batch_index * per, (plan.batch_index + 1) * per)
+        t0 = time.perf_counter()
+        # at once on every rank: a process's first meta-device model imports
+        # torch's meta kernels, seconds of host time
+        specs = param_specs(cfg, ctx)
+        blocks, draw_s = None, 0.0
+        for r in range(world if inp["draw_in_turn"] else 1):
+            if not inp["draw_in_turn"] or r == rank:
+                t1 = time.perf_counter()
+                blocks = init_blocks(cfg, specs, dmesh, seed=seed, device=device)
+                _free(device)  # the whole leaves' memory, back to the card for the next rank
+                draw_s = time.perf_counter() - t1
+            dist.barrier()
+        lm = LM(cfg, device="meta").load_blocks(blocks)
+        del blocks
+        vp = padded_vocab(cfg)
+
+        def whole(t):  # the rank's rows and vocabulary block -> every row and column
+            n = t.shape[0]
+            t = collectives.model_blocks(t.float())[0].reshape(n, -1)[:, :vp]
+            return collectives.gather_batch(t).cpu()
+
+        res = {"init_s": time.perf_counter() - t0, "draw_s": draw_s}
+        kernels.reset_launch_counts()
+        got = whole(prefill_logits(lm, {"tokens": inp["prompts"].to(device)[rows]}))
+        sync(device)
+        res.update(launches=kernels.launch_counts(), plain=kernels.plain_counts(),
+                   prefill_err=_leaf_err(got, inp["prefill_ref"]))
+        seen, step_s, step = [], [], lm.decode_step
+
+        def kept(cache, token, pos, *, length=None):  # each call's inputs and logits kept
+            sync(device)
+            t1 = time.perf_counter()
+            if not seen:
+                with CollectiveMeter() as meter:
+                    out = step(cache, token, pos, length=length)
+                res["bytes"] = dict(meter.bytes)
+            else:
+                out = step(cache, token, pos, length=length)
+            sync(device)
+            step_s.append(time.perf_counter() - t1)
+            seen.append((token.clone(),  # the engine updates its own in place
+                         torch.as_tensor(pos).reshape(-1).expand(token.shape[0]).clone(),
+                         out.float().clone()))
+            return out
+
+        lm.decode_step = kept
+        outputs, cache = _serve_script(lm, part, inp, device, rows)
+        res["cache_bytes"] = sum(t.numel() * t.element_size() for c in cache
+                                 for t in c.values())
+        del cache
+        # call i against the unsharded run's call i: the tokens and positions
+        # fed, and the logits of the rank's rows and vocabulary block over
+        # max|logits| of the whole call
+        calls, refs, errs, fed = inp["calls"], inp["refs"], [], []
+        for i, (token, pos, out) in enumerate(seen):
+            if i >= len(calls):
+                fed.append(False)
+                errs.append(math.inf)
+                continue
+            fed.append(torch.equal(token.cpu(), calls[i][0][rows])
+                       and torch.equal(pos.cpu(), calls[i][1][rows]))
+            lo = collectives.model_axis().rank * out.shape[1]
+            want = refs[i][rows, lo:lo + out.shape[1]]  # a padded block past Vp: cut
+            errs.append(float((out.cpu()[:, :want.shape[1]] - want).abs().max())
+                        / max(float(refs[i].abs().max()), 1e-30))
+        res.update(errs=errs, fed=fed, step_s=step_s, outputs=outputs,
+                   peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+        torch.save(res, f"{tmp}/rank{rank}.pt")
+    finally:
+        set_mesh_ctx(None)
+        dist.destroy_process_group()
+
+
+def serve_mesh(device, part: str, *, seed: int = 0, overrides: dict | None = None,
+               mesh: tuple[int, int] = SERVE_MESH, timeout: float = 900.0, **shape) -> dict:
+    """Phase 19 part ``part`` (SERVE_PARTS' shapes, ``shape`` overriding
+    them): the unsharded model on the card first (``prefill_logits`` and
+    ``_serve_script``, every ``decode_step`` call recorded with its tokens,
+    positions and logits), freed; then ``serve_rank`` on the mesh's ranks
+    sharing the card, each running the same script with its own tokens and
+    MoE routing. Gates, fp32: ``prefill_logits`` and every ``decode_step``
+    call's logits within SERVE_FP32_TOL of max|logits| of the unsharded
+    call's, every call fed the unsharded call's tokens and positions, the
+    unsharded run's outputs on every rank; each rank's cache bytes the dry
+    run's (``launch.specs``' decode layout at this batch and length), its
+    bytes for one step ``decode_step_bytes``; on the card K8 / K9 launched
+    in every attention / Mamba layer of the forward on every rank, and no
+    plain call on the card's tensors."""
+    import tempfile
+
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.specs import cache_sds
+    from repro_torch.models import LM
+    from repro_torch.serving import prefill_logits
+    from repro_torch.sharding import MeshCtx, MeshShape
+
+    sh = {**SERVE_PARTS[part], **shape}
+    batch, prompt, max_len, steps = sh["batch"], sh["prompt"], sh["max_len"], sh["steps"]
+    overrides = overrides or {}
+    cfg = serve_config(part, **overrides)
+    layout = "seq_shard_wide" if batch == 1 else "seq_model"
+    on_card = torch.device(device).type == "cuda"
+    world = mesh[0] * mesh[1]
+    tol = SERVE_FP32_TOL
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(seed + 3))
+    inp = {"batch": batch, "max_len": max_len, "prompt": prompt, "steps": steps,
+           "prompts": prompts, "draw_in_turn": sh["draw_in_turn"],
+           "ops": _engine_ops(prompt, steps, sh["join_at"], cfg.vocab_size, seed)
+           if part == "a" else None}
+    # the unsharded run, every decode call recorded
+    lm = LM(cfg, seed=seed, device=str(device))
+    inp["prefill_ref"] = prefill_logits(lm, {"tokens": prompts.to(device)}).float().cpu()
+    calls, refs, step = [], [], lm.decode_step
+
+    def recorded(cache, token, pos, *, length=None):
+        out = step(cache, token, pos, length=length)
+        calls.append((token.cpu().clone(),  # the engine updates its own in place
+                      torch.as_tensor(pos).reshape(-1).expand(token.shape[0]).cpu().clone()))
+        refs.append(out.float().cpu())
+        return out
+
+    lm.decode_step = recorded
+    sync(device)
+    t0 = time.perf_counter()
+    outputs, cache = _serve_script(lm, part, inp, device)
+    del cache
+    sync(device)
+    unsharded_s = time.perf_counter() - t0
+    del lm.decode_step, lm, step  # the recorder holds the model: drop it with the model
+    _free(device)
+    inp.update(calls=calls, refs=refs)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        torch.save(inp, f"{tmp}/inputs.pt")
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                        f"chip_smoke.serve_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
+                        f"{part!r}, {overrides!r}, {tuple(mesh)!r}, {seed})")
+                with open(f"{tmp}/rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"serve_shard ({part}): the {world} ranks did not finish in "
+                             f"{timeout} s") from None
+        finally:
+            for p in procs:
+                p.kill()
+        wall_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = "".join(f"\nrank {r}:\n" + pathlib.Path(f"{tmp}/rank{r}.log").read_text()[-1500:]
+                            for r in failed)
+            raise PhaseError(f"serve_shard ({part}) {cfg.name}: ranks {failed} failed:{tails}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    dry = tree_bytes(cache_sds(cfg, batch, max_len,
+                               MeshCtx(mesh=MeshShape(("data", "model"), tuple(mesh)))))
+    expect = decode_step_bytes(cfg, mesh[0], mesh[1], batch, max_len, layout)
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    res = {"part": part, "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "mesh": list(mesh), "layout": layout, "batch": batch, "prompt": prompt,
+           "max_len": max_len, "steps": steps, "calls": len(calls), "tol": tol,
+           "prefill_err": [rk["prefill_err"] for rk in ranks],
+           "step_err_worst": max(max(rk["errs"]) for rk in ranks),
+           "step_err_median": max(median(rk["errs"]) for rk in ranks),
+           "fed_alike": [len(rk["fed"]) == len(calls) and all(rk["fed"]) for rk in ranks],
+           "outputs_same": [rk["outputs"] == outputs for rk in ranks], "outputs": outputs,
+           "rank_cache_bytes": [rk["cache_bytes"] for rk in ranks], "dryrun_cache_bytes": dry,
+           "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
+           "step_ms_median": [1e3 * median(rk["step_s"]) for rk in ranks],
+           "unsharded_s": unsharded_s, "wall_s": wall_s, "init_s": [rk["init_s"] for rk in ranks],
+           "draw_s": [rk["draw_s"] for rk in ranks],
+           "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
+           "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
+           "plain": [rk["plain"] for rk in ranks],
+           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS}}
+    log(f"serve_shard ({part}) {cfg.name}: {json.dumps(res)}")
+    bad = []
+    for r, rk in enumerate(ranks):
+        if not rk["prefill_err"] <= tol:
+            bad.append(f"rank {r}'s prefill_logits {rk['prefill_err']:.3e} of max > {tol}")
+        over = [i for i, e in enumerate(rk["errs"]) if not e <= tol]
+        if over:
+            bad.append(f"rank {r}: {len(over)} decode calls past {tol} of max|logits|, the "
+                       f"first {over[0]}, the worst {max(rk['errs']):.3e}")
+        if not res["fed_alike"][r]:
+            first = next((i for i, ok in enumerate(rk["fed"]) if not ok), len(rk["fed"]))
+            bad.append(f"rank {r} made {len(rk['fed'])} decode calls against the unsharded "
+                       f"run's {len(calls)}, the first fed other tokens or positions: {first}")
+        if not res["outputs_same"][r]:
+            bad.append(f"rank {r}'s outputs differ from the unsharded run's")
+        if rk["cache_bytes"] != dry:
+            bad.append(f"rank {r}'s cache {rk['cache_bytes']} B, the dry run's {dry}")
+        got = {k: rk["bytes"][k] for k in expect}
+        if got != expect or sum(rk["bytes"].values()) != sum(expect.values()):
+            bad.append(f"rank {r}'s collective bytes {rk['bytes']} against {expect}")
+    if on_card:
+        n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+        want = {"flash_attention": n_attn, "ssd": cfg.n_layers - n_attn}
+        for r, (rl, pl) in enumerate(zip(res["rank_launches"], res["plain"])):
+            if rl != want:
+                bad.append(f"rank {r} launched {rl} in prefill_logits, not {want}")
+            if any(v["cuda_calls"] for v in pl.values()):
+                bad.append(f"rank {r} called a plain version on the card: {pl}")
+    if bad:
+        raise PhaseError(f"serve_shard ({part}) {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def serve_shard(device, *, seed: int = 0, overrides: dict | None = None,
+                timeout: float = 900.0, **shapes) -> dict:
+    """Phase 19: ``serve_mesh`` (a) and (b); ``overrides`` and ``shapes``
+    ({"a": {...}, "b": {...}}) are the CPU rehearsal's."""
+    if torch.device(device).type == "cuda":
+        build_kernels()  # the ranks' processes load this build
+    res = {}
+    for part in SERVE_PARTS:
+        t0 = time.perf_counter()
+        res[part] = serve_mesh(device, part, seed=seed, overrides=(overrides or {}).get(part),
+                               timeout=timeout, **shapes.get(part, {}))
+        res[part]["phase_s"] = time.perf_counter() - t0
+    res["launches"] = {n: sum(res[p]["launches"][n] for p in SERVE_PARTS) for n in LM_KERNELS}
+    return res
+
+
 #: the phases ``--phase`` runs alone (each a function of this script).
-ALONE = ("serve", "train", "launch", "shard", "shard_launch")
+ALONE = ("serve", "train", "launch", "shard", "shard_launch", "moe_shard", "serve_shard")
 
 
 def run_alone(names, tree: str | None, seed: int) -> int:
@@ -3971,33 +4540,58 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:  # the seconds each phase took, logged at the end
+        marks.append((name, time.perf_counter()))
+
     try:
         info = probe()
         build_kernels()
+        mark("probe, build")
         parity_worst = kernel_parity("cuda", seed=args.seed)
+        mark("parity")
         e2e = end_to_end("cuda", seed=args.seed)
         tensors = e2e.pop("tensors")
+        mark("uniform")
         fb = bless_end_to_end("cuda", tensors, seed=args.seed)
         bless_t = fb.pop("tensors")
+        mark("bless")
         calls = main_path_calls(tensors, sigma=4.0, bless_t=bless_t, seed=args.seed)
         errs = main_path_parity(calls)
         times = kernel_times(calls)
         del calls
         crossovers("cuda", times, seed=args.seed)
+        mark("times")
         cv = cross_validation("cuda", tensors, bless_t["center_set"], seed=args.seed)
+        mark("cv")
         clf = classify("cuda", tensors, bless_t["center_set"], fb["test_error"], seed=args.seed)
+        mark("classifier")
         krr = krr_online("cuda", tensors, bless_t, seed=args.seed)
+        mark("krr-online")
         rest = core_rest("cuda", tensors, bless_t, krr.pop("referee_t"), fb["test_error"])
+        mark("core-rest")
         del tensors, bless_t  # the LM phases need the card's memory
         _free("cuda")
         lm_worst = lm_kernel_parity("cuda", seed=args.seed)
         wide = wide_kernel_times("cuda", seed=args.seed)
+        mark("lm parity")
         dvf = decode_vs_forward("cuda", seed=args.seed)
+        mark("decode")
         srv = serve("cuda", seed=args.seed)
+        mark("serve")
         nys = nystrom("cuda", seed=args.seed)
+        mark("nystrom")
         trn = train("cuda", seed=args.seed)
+        mark("train")
         lch = launch("cuda", seed=args.seed)
+        mark("launch")
         shd = shard("cuda", seed=args.seed, launch_loss=lch["launcher"]["losses"][0])
+        mark("shard")
+        moe = moe_shard("cuda", seed=args.seed)
+        mark("moe_shard")
+        srs = serve_shard("cuda", seed=args.seed)
+        mark("serve_shard")
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
@@ -4006,8 +4600,9 @@ def main(argv=None) -> int:
     # phase 13's sharded and guarded fits (its ranks' too) for K1-K7; for K8 and
     # K9 the LM forward of phase 10, the prefill + serving of phase 11, phase
     # 14's exact prefill, phase 15's training steps, phase 16's launcher
-    # runs and pipeline ranks and phase 17's sharded ranks
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd)
+    # runs and pipeline ranks, phase 17's sharded ranks, phase 18's MoE ranks
+    # and the prefill_logits of phase 19's serving ranks
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd, moe, srs)
     launches = {name: sum(p["launches"].get(name, 0) for p in paths)
                 for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -4139,8 +4734,29 @@ def main(argv=None) -> int:
             f"{json.dumps([round(x, 3) for x in sb['step_s']])} s against {sb['unsharded_step_s']:.3f} s "
             f"unsharded; bytes a rank {json.dumps(sb['bytes'][0])}; peak "
             f"{json.dumps(sb['rank_peak_bytes'])} B")
+    for arch in MOE_SHARD:
+        m = moe[arch]
+        log(f"moe_shard {m['arch']} ({m['n_layers']} layers, fp32, {m['moe_mode']}, mesh "
+            f"{json.dumps(m['mesh'])}): loss {m['loss_rel']:.3e} relative, worst gradient "
+            f"{m['grad_worst']:.3e} ({m['grad_worst_param']}); gradient "
+            f"{json.dumps([round(x, 3) for x in m['step_s']])} s against {m['unsharded_step_s']:.3f} s "
+            f"unsharded; dropped {json.dumps(m['dropped_share'])}; bytes a rank "
+            f"{json.dumps(m['bytes'][0])}; peak {json.dumps(m['rank_peak_bytes'])} B; phase "
+            f"{m['phase_s']:.1f} s")
+    for part in SERVE_PARTS:
+        r = srs[part]
+        log(f"serve_shard ({part}) {r['arch']} ({r['n_layers']} layers, {r['dtype']}, {r['layout']}, "
+            f"batch {r['batch']}, cache {r['max_len']}): prefill_logits "
+            f"{max(r['prefill_err']):.3e}, decode calls median {r['step_err_median']:.3e}, worst "
+            f"{r['step_err_worst']:.3e} of max|logits| (gate {r['tol']}) over {r['calls']} calls; "
+            f"outputs the unsharded run's {r['outputs_same']}; decode "
+            f"{json.dumps([round(x, 2) for x in r['step_ms_median']])} ms a step; cache "
+            f"{r['rank_cache_bytes'][0]} B a rank; bytes a step {json.dumps(r['bytes'][0])}; peak "
+            f"{json.dumps(r['rank_peak_bytes'])} B; phase {r['phase_s']:.1f} s")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
+    log("phase seconds: " + json.dumps({name: round(t - marks[i][1], 1)
+                                        for i, (name, t) in enumerate(marks[1:])}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(nvidia_smi())
     log(json.dumps(record))

@@ -7,9 +7,11 @@ each spec; a ``MeshShape`` for the production meshes). The reference also
 returns the donated arguments; the port's steps update the state and the
 decode cache in place, so there is no donation to name.
 
-The shard shapes size each rank's memory. The step itself runs the LM
-unsharded, so it takes the args of a mesh of one rank (sharded execution
-across ranks is ROADMAP A).
+The shard shapes size each rank's memory. The step runs on a mesh's
+ranks as they are (each tensor its rank's block, ``sharding.collectives``);
+on the meta device it runs the args of a mesh of one rank. The decode
+cells take ``sharding.serve_ctx``'s layout, the one ``LM.init_cache``
+allocates under a serving mesh.
 
 Shape set (assigned):
   train_4k     seq 4096,  global_batch 256  -> train_step
@@ -33,7 +35,7 @@ from ..models.config import ArchConfig
 from ..models.model import model_dtype
 from ..optim import OptConfig, opt_state_specs
 from ..serving.engine import prefill_logits
-from ..sharding.rules import MeshCtx, local_shape, logical_to_spec
+from ..sharding.rules import MeshCtx, local_shape, logical_to_spec, serve_ctx
 from ..training import TrainState, make_train_step
 
 SHAPES = {
@@ -159,22 +161,17 @@ def input_specs(cfg: ArchConfig, shape_name: str, ctx: MeshCtx,
         return torch.func.functional_call(serve, {f"lm.{k}": v for k, v in params.items()},
                                           args, kwargs)
 
-    serve_ctx = dataclasses.replace(ctx, fsdp=False)
     if kind == "prefill":
-        bat = batch_specs(cfg, b, s, serve_ctx)
+        pctx = dataclasses.replace(ctx, fsdp=False)
+        bat = batch_specs(cfg, b, s, pctx)
         bat.pop("labels")
         return (lambda params, batch: call(params, "prefill", batch)), \
-            (params_sds(cfg, serve_ctx), bat)
+            (params_sds(cfg, pctx), bat)
 
     # decode: batch over (pod,data); KV seq over model (decode_32k) or over
     # data+model (long_500k, batch=1: SP across every rank)
-    seq_logical = "seq_shard_wide" if b == 1 else "seq_model"
-    rules = dict(serve_ctx.rules)
-    rules["seq_model"] = ("model",)
-    if b == 1:
-        rules["batch"] = ()  # batch=1: nothing to shard
-    dctx = dataclasses.replace(serve_ctx, rules=rules)
-    cache = _cache(cfg, b, s, dctx, seq_logical)
+    dctx = serve_ctx(ctx.mesh, b, rules=ctx.rules)
+    cache = cache_sds(cfg, b, s, ctx)
     tok = _meta((b,), torch.int64, dctx, "batch")
     pos = torch.empty((), dtype=torch.int64, device="meta")
     p_sds = params_sds(cfg, dctx)
@@ -192,11 +189,13 @@ def input_specs(cfg: ArchConfig, shape_name: str, ctx: MeshCtx,
     return fn, (p_sds, cache, tok, pos)
 
 
-def _cache(cfg: ArchConfig, b: int, s: int, ctx: MeshCtx,
-           seq_logical: str) -> list[dict[str, torch.Tensor]]:
-    """``LM.init_cache(b, s)``'s layout as meta tensors of their shards."""
+def cache_sds(cfg: ArchConfig, b: int, s: int, ctx: MeshCtx) -> list[dict[str, torch.Tensor]]:
+    """``LM.init_cache(b, s)``'s layout as meta tensors of one rank's blocks
+    under the serve layout of a batch of ``b`` on ``ctx``'s mesh and rules
+    (``serve_ctx``): what ``init_cache`` allocates on each rank there."""
     dtype = model_dtype(cfg)
-    specs = cache_specs(cfg, ctx, seq_logical=seq_logical)
+    ctx = serve_ctx(ctx.mesh, b, rules=ctx.rules)
+    specs = cache_specs(cfg, ctx, seq_logical=ctx.kv_seq)
     out = []
     for i, spec in enumerate(specs):
         if cfg.mixer_kind(i) == "attn":

@@ -8,7 +8,9 @@ tensor. (The reference's docstring calls its Pallas flash kernel the drop-in
 for the chunked path through a ``use_pallas`` flag in ``model.py``; that flag
 does not exist there, and only its tests call the kernel. Here K8 is what
 ``attention`` runs on the card.) ``decode_attention`` is plain PyTorch on
-either device: the reference has no kernel for it.
+either device: the reference has no kernel for it. Its partial form,
+``decode_attention_partial``, gives one block of the cache's sequence the
+statistics that merge across blocks (decode under a mesh).
 
 BLESS-Nystrom attention (DESIGN.md section 3): softmax attention through M
 landmark keys chosen by their ridge leverage scores in the key Gram matrix
@@ -50,26 +52,48 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     return out.transpose(1, 2)
 
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, softcap: float,
+                   length: torch.Tensor | None, offset: int = 0) -> torch.Tensor:
+    """fp32 scores (B, Hkv, G, S) of one query token against the cache rows,
+    those at a position (``offset`` + row) past ``length`` at -1e30."""
+    b, s, hkv, d = k_cache.shape
+    qg = q[:, 0].reshape(b, hkv, q.shape[2] // hkv, d)  # (B, Hkv, G, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * (1.0 / math.sqrt(d))
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    if length is not None:
+        lens = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
+        valid = torch.arange(offset, offset + s, device=q.device)[None, None, None, :] < lens
+        scores = torch.where(valid, scores, scores.new_full((), NEG))
+    return scores
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
                      softcap: float = 0.0, length: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token decode. q (B, 1, Hq, D); caches (B, S, Hkv, D); ``length``
     a scalar or per-slot (B,) count of valid cache rows (the rest are masked
     with -1e30)."""
-    b, s, hkv, d = k_cache.shape
-    hq = q.shape[2]
-    group = hq // hkv
-    scale = 1.0 / math.sqrt(d)
-    qg = q[:, 0].reshape(b, hkv, group, d)  # (B, Hkv, G, D)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
-    if softcap > 0.0:
-        scores = softcap * torch.tanh(scores / softcap)
-    if length is not None:
-        lens = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
-        valid = torch.arange(s, device=q.device)[None, None, None, :] < lens
-        scores = torch.where(valid, scores, scores.new_full((), NEG))
-    p = torch.softmax(scores, dim=-1)
+    b, _, hkv, d = k_cache.shape
+    p = torch.softmax(_decode_scores(q, k_cache, softcap, length), dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    return out.reshape(b, 1, q.shape[2], d).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                             softcap: float = 0.0, length: torch.Tensor | None = None,
+                             offset: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_attention`` over one block of the cache's sequence, whose
+    rows sit at positions ``offset`` on, as the statistics that merge
+    across blocks (``sharding.collectives.merge_attention``): the
+    unnormalised sum acc (B, Hq, D) = sum_j e^(s_j - m) v_j, the max m and
+    the sum of exponentials l, each (B, Hq), all fp32."""
+    b, _, hkv, d = k_cache.shape
+    hq = q.shape[2]
+    scores = _decode_scores(q, k_cache, softcap, length, offset)
+    mx = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - mx)
+    acc = torch.einsum("bkgs,bskd->bkgd", e, v_cache.float())
+    return acc.reshape(b, hq, d), mx.reshape(b, hq), torch.sum(e, dim=-1).reshape(b, hq)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,10 @@ PyTorch on either device, as in the reference.
 Under a mesh the block runs its rank's share of the heads (``model``):
 ``in_proj`` column-parallel by heads, the B / C projections computed in
 full on every rank, the gated RMSNorm's mean of squares summed over
-``model``, ``out_proj`` row-parallel; K9 sees plain local tensors.
+``model``, ``out_proj`` row-parallel; K9 sees plain local tensors. Decode keeps the
+cache as ``cache_specs``' blocks (the conv window's channels and the
+state's heads over ``model``) and gathers the new token's projection over
+``model`` instead of ``in_proj`` (``Mamba._decode_sharded``).
 
 Shapes follow the paper: x (B, S, H, P), dt (B, S, H), A (H,) negative, one
 B/C group (B, S, N), state (B, H, P, N) fp32.
@@ -136,6 +139,8 @@ class Mamba(nn.Module):
     def decode(self, u_t: torch.Tensor, cache: dict) -> torch.Tensor:
         """One token. u_t (B, 1, d); ``cache`` {"conv": (B, k - 1, conv_dim),
         "state": (B, H, P, N) fp32} is updated in place. Returns (B, 1, d)."""
+        if tp.active() is not None:
+            return self._decode_sharded(u_t, cache)
         cfg = self.cfg
         bsz = u_t.shape[0]
         di, ns, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
@@ -151,3 +156,47 @@ class Mamba(nn.Module):
         cache["conv"] = window[:, 1:]
         cache["state"] = new_state.to(cache["state"].dtype)
         return self._gate_out(y.reshape(bsz, di), z, self._local())[:, None, :]
+
+    def _decode_sharded(self, u_t: torch.Tensor, cache: dict) -> torch.Tensor:
+        """``decode`` on a mesh, the cache in ``cache_specs``' blocks: the
+        conv window's channels and the state's heads over ``model``. The
+        rank's ``in_proj`` columns give its block of the new token's
+        [z | x B C | dt], gathered over ``model`` (an activation, where the
+        forward gathers the matrix); the window's history is gathered too,
+        since its channel blocks do not line up with the x / B / C split.
+        The rank runs its heads (its x channels and the whole B, C), writes
+        back its own block of the window and its heads' state, and its
+        ``out_proj`` rows give a partial summed over ``model``."""
+        cfg = self.cfg
+        bsz = u_t.shape[0]
+        di, ns, nh, hp, k = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim,
+                             cfg.ssm_conv)
+        width, conv_dim = 2 * di + 2 * ns + nh, di + 2 * ns
+        h_lo, h_hi = tp.model_part(nh, "Mamba-2 heads")
+        c_lo, c_hi = h_lo * hp, h_hi * hp
+        block = cache["conv"].shape[-1]
+        proj, hist = tp.model_blocks(u_t[:, 0] @ tp.weight(self, "in_proj"),
+                                     cache["conv"].reshape(bsz, -1))
+        z, xbc, dt = self._split(proj.reshape(bsz, -1)[:, :width])  # every channel, (B, *)
+        hist = hist.reshape(bsz, -1, k - 1, block).transpose(1, 2).reshape(bsz, k - 1, -1)
+        window = torch.cat([hist[..., :conv_dim], xbc[:, None, :]], dim=1)  # (B, k, conv_dim)
+        def mine(t):  # the channels of this rank's heads: its x, and B and C
+            return torch.cat([t[..., c_lo:c_hi], t[..., di:]], dim=-1)
+
+        cw = mine(tp.weight(self, "conv_w", gather_model=True))
+        conv = torch.einsum("bkc,kc->bc", mine(window).float(), cw.float()).to(u_t.dtype)
+        conv = torch.nn.functional.silu(conv)
+        nl, dl = h_hi - h_lo, c_hi - c_lo
+        x, b, c = conv[..., :dl], conv[..., dl:dl + ns], conv[..., dl + ns:]
+        dtv = softplus(dt[:, h_lo:h_hi].float() + self.dt_bias[h_lo:h_hi])  # (B, nl)
+        a = -torch.exp(self.a_log[h_lo:h_hi])
+        y, new_state = ssd_decode_step(cache["state"][:, :nl], x.reshape(bsz, nl, hp), dtv, a, b, c)
+        y = y + x.reshape(bsz, nl, hp) * self.d_skip[h_lo:h_hi][None, :, None].to(y.dtype)
+        lo = tp.model_axis().rank * block
+        own = window[:, 1:, lo:lo + block]
+        cache["conv"] = torch.nn.functional.pad(own, (0, block - own.shape[-1]))
+        cache["state"][:, :nl] = new_state.to(cache["state"].dtype)
+        out = self._gate_out(y.reshape(bsz, dl), z[:, c_lo:c_hi],
+                             {"norm": self.norm[c_lo:c_hi],
+                              "out_proj": tp.weight(self, "out_proj")})
+        return tp.reduce_from_model(out)[:, None, :]

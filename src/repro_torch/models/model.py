@@ -27,8 +27,13 @@ the forward and ``loss_fn`` run sharded, each tensor the rank's block
 stored as its ``param_specs`` block and gathered over ``data`` where it is
 used (FSDP), attention and Mamba-2 heads, MLP columns and the vocabulary
 split over ``model`` (tensor parallelism; ``logits`` gives the rank's
-vocabulary block). MoE layers run only where ``model`` is 1, and decode
-not at all (ROADMAP A).
+vocabulary block), MoE layers in the reference's layout
+(``cfg.moe_mode(SPEC_TP)``: experts or each expert's ff columns over
+``model``, or replicated). Decode runs under ``rules.serve_ctx``'s layouts:
+the cache as ``cache_specs``' blocks (attention's sequence over ``model``,
+or over every rank for one sequence; Mamba-2's channels and heads over
+``model``), each rank attending over its block of the sequence and the
+partials merged by log-sum-exp (``collectives.merge_attention``).
 
 Decode caches are plain dicts, one per layer, updated in place by
 ``decode_step`` (the reference returns a new cache pytree).
@@ -44,9 +49,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..sharding import collectives as tp
 from ..sharding import rules
-from ..sharding.rules import MeshCtx, PartitionSpec, logical_to_spec, under_mesh_ctx
+from ..sharding.rules import (MeshCtx, PartitionSpec, local_shape, logical_to_spec,
+                              under_mesh_ctx)
 from . import layers
-from .attention import attention, decode_attention, nystrom_attention
+from .attention import (attention, decode_attention, decode_attention_partial,
+                        nystrom_attention)
 from .config import ArchConfig
 from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
                      sinusoidal_pos)
@@ -118,6 +125,11 @@ class Attention(nn.Module):
         q = lowp(x @ wq).reshape(b, s, hq, cfg.head_dim)
         k = lowp(x @ wk).reshape(b, s, hkv, cfg.head_dim)
         v = lowp(x @ wv).reshape(b, s, hkv, cfg.head_dim)
+        return self._positions(q, k, v, positions, mrope_pos, q_norm, k_norm)
+
+    def _positions(self, q, k, v, positions, mrope_pos, q_norm, k_norm):
+        """qk-norm and rotary positions of projected (B, S, H, D) q, k."""
+        cfg = self.cfg
         if cfg.qk_norm:
             q = rms_norm(q, q_norm, cfg.norm_eps)
             k = rms_norm(k, k_norm, cfg.norm_eps)
@@ -148,6 +160,8 @@ class Attention(nn.Module):
         cache's k/v rows at pos % max_len are written in place."""
         cfg = self.cfg
         b = x.shape[0]
+        if tp.active() is not None:
+            return self._decode_sharded(x, cache, pos, length, mrope_pos)
         q, k, v = self._qkv(x, pos.reshape(b, 1), mrope_pos)
         slot = pos % cache["k"].shape[1]
         bidx = torch.arange(b, device=x.device)
@@ -156,6 +170,45 @@ class Attention(nn.Module):
         out = decode_attention(q, cache["k"], cache["v"], softcap=cfg.attn_logit_softcap,
                                length=length)
         return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ self.wo
+
+    def _decode_sharded(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                        length: torch.Tensor | None,
+                        mrope_pos: torch.Tensor | None) -> torch.Tensor:
+        """``decode`` on a mesh, the cache in ``cache_specs``' blocks (its
+        sequence over ``plan.kv``, the serve layouts' ``model`` or ``data``
+        and ``model``). The new token's q, k, v come from the rank's
+        columns and are gathered over ``model`` in one collective (every
+        rank then has every head; gemma-2b's one kv head is split within
+        its columns); the rank
+        whose block holds ``pos % max_len`` writes the k / v row; each rank
+        attends over its block, by global position for ``length``; the
+        partials merge across the sequence's ranks for this rank's q heads,
+        which meet its ``wo`` rows in a partial summed over ``model``."""
+        cfg = self.cfg
+        plan = tp.active()
+        b, hd = x.shape[0], cfg.head_dim
+        q_lo, q_hi = tp.model_part(cfg.n_heads, "q heads")
+        h = x[:, 0]
+        q, k, v = (blk.reshape(b, -1)[:, :heads * hd].reshape(b, 1, heads, hd)
+                   for blk, heads in zip(tp.model_blocks(*(h @ tp.weight(self, w)
+                                                            for w in ("wq", "wk", "wv"))),
+                                         (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)))
+        norms = (self.q_norm, self.k_norm) if cfg.qk_norm else (None, None)
+        q, k, v = self._positions(q, k, v, pos.reshape(b, 1), mrope_pos, *norms)
+        rows = cache["k"].shape[1]
+        lo = plan.kv_index * rows
+        local = pos % (rows * plan.kv_ways) - lo
+        here = ((local >= 0) & (local < rows))[:, None, None]  # the slots whose row is here
+        bidx, at = torch.arange(b, device=x.device), local.clamp(0, rows - 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c[bidx, at] = torch.where(here, new[:, 0].to(c.dtype), c[bidx, at])
+        acc, mx, den = decode_attention_partial(q, cache["k"], cache["v"],
+                                                softcap=cfg.attn_logit_softcap, length=length,
+                                                offset=lo)
+        out = tp.merge_attention(acc, mx, den, slice(q_lo, q_hi), q.dtype)
+        return tp.reduce_from_model(out.reshape(b, 1, (q_hi - q_lo) * hd)
+                                    @ tp.weight(self, "wo"))
 
 
 class Block(nn.Module):
@@ -178,7 +231,7 @@ class Block(nn.Module):
         if self.mlp_kind == "moe":
             self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.mlp_act,
                            capacity_factor=cfg.capacity_factor, shared_ff=cfg.shared_expert_ff,
-                           **kw)
+                           mode=cfg.moe_mode(SPEC_TP), **kw)
         elif self.mlp_kind == "dense":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
 
@@ -251,6 +304,21 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def load_blocks(self, blocks: dict[str, torch.Tensor]) -> "LM":
+        """Hold ``blocks`` (every leaf by ``state_dict`` name: a rank's blocks
+        under ``param_specs``, as ``init_blocks`` or ``distribute_state``
+        give them) as the parameters, without a gradient: a model to serve
+        under that mesh (``decode_step``, ``ServeEngine``, ``prefill_logits``)
+        from a weightless ``LM(cfg, device="meta")``. Returns ``self``."""
+        names = dict(self.named_parameters())
+        if set(blocks) != set(names):
+            raise KeyError(f"blocks for {sorted(set(blocks) ^ set(names))[:5]}: not this model's "
+                           "parameters")
+        for name, t in blocks.items():
+            owner, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(owner), leaf, nn.Parameter(t, requires_grad=False))
+        return self
+
     def _embed_in(self, batch: dict) -> torch.Tensor:
         cfg = self.cfg
         if not cfg.embed_inputs:  # audio: precomputed frame embeddings
@@ -305,22 +373,34 @@ class LM(nn.Module):
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> list[dict[str, Any]]:
         """One dict per layer: {"k", "v"} (B, max_len, Hkv, head_dim) for
         attention, {"conv" (B, k - 1, conv_dim), "state" (B, H, P, N) fp32}
-        for Mamba; zeros on the model's device."""
+        for Mamba; zeros on the model's device. Under a mesh ``batch_size``
+        is the whole batch and each leaf is the rank's block of
+        ``cache_specs`` under the ctx's ``kv_seq`` (``rules.serve_ctx``):
+        ``local_shape``'s bytes, as the dry run counts them."""
         cfg = self.cfg
         dtype = dtype or model_dtype(cfg)
         kw = dict(device=self.device)
+        plan = tp.active()
+        if plan is not None:
+            if batch_size % plan.batch_ways or max_len % plan.kv_ways:
+                raise ValueError(f"a cache of {batch_size} x {max_len} does not split over "
+                                 f"{plan.batch_ways} x {plan.kv_ways} ranks")
+            specs = cache_specs(cfg, plan.ctx, seq_logical=plan.ctx.kv_seq)
         cache = []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if layer.mixer_kind == "attn":
-                shape = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
-                cache.append({"k": torch.zeros(shape, dtype=dtype, **kw),
-                              "v": torch.zeros(shape, dtype=dtype, **kw)})
+                kv = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+                shapes = {"k": (kv, dtype), "v": (kv, dtype)}
             else:
-                cache.append({
-                    "conv": torch.zeros((batch_size, cfg.ssm_conv - 1,
-                                         cfg.d_inner + 2 * cfg.ssm_state), dtype=dtype, **kw),
-                    "state": torch.zeros((batch_size, cfg.ssm_heads, cfg.ssm_headdim,
-                                          cfg.ssm_state), dtype=torch.float32, **kw)})
+                shapes = {"conv": ((batch_size, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                   dtype),
+                          "state": ((batch_size, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                                    torch.float32)}
+            if plan is not None:
+                shapes = {k: (local_shape(shape, specs[i][k], plan.ctx.mesh), dt)
+                          for k, (shape, dt) in shapes.items()}
+            cache.append({k: torch.zeros(shape, dtype=dt, **kw)
+                          for k, (shape, dt) in shapes.items()})
         return cache
 
     @torch.no_grad()
@@ -328,17 +408,22 @@ class LM(nn.Module):
                     mrope_pos: torch.Tensor | None = None) -> torch.Tensor:
         """One decode step: token (B,) int, pos a scalar or (B,) write
         positions, ``length`` a scalar or (B,) count of valid cache rows.
-        Updates ``cache`` in place; returns logits (B, padded vocab)."""
+        Updates ``cache`` in place; returns logits (B, padded vocab).
+
+        Under a mesh (``rules.serve_ctx``'s layouts) ``token``, ``pos`` and
+        ``length`` hold the rank's batch rows, ``cache`` is ``init_cache``'s
+        blocks and the logits are the rank's rows and vocabulary block."""
         if not self.cfg.has_decode:
             raise ValueError(f"{self.cfg.name} is encoder-only")
-        if tp.active() is not None:
-            raise NotImplementedError("decode under a mesh of more than one rank is not ported "
-                                      "yet (cache_specs, seq_shard: ROADMAP A)")
         b = token.shape[0]
         pos = torch.as_tensor(pos, device=self.device).reshape(-1).expand(b)
         if length is not None:
             length = torch.as_tensor(length, device=self.device)
-        x = self.embed[token][:, None, :]  # (B, 1, d)
+        if tp.model_axis().size > 1:
+            table = tp.weight(self, "embed")
+            x = tp.embed_lookup(table, token[:, None], tp.model_axis().rank * table.shape[0])
+        else:
+            x = tp.weight(self, "embed")[token][:, None, :]  # (B, 1, d)
         for layer, c in zip(self.layers, cache):
             x = layer.decode(x, c, pos, length, mrope_pos)
         return self.logits(rms_norm(x[:, 0], self.final_norm, self.cfg.norm_eps))
@@ -436,8 +521,9 @@ def param_specs(cfg: ArchConfig, ctx: MeshCtx) -> dict[str, PartitionSpec]:
 def cache_specs(cfg: ArchConfig, ctx: MeshCtx, *,
                 seq_logical: str = "none") -> list[dict[str, PartitionSpec]]:
     """Sharding for ``LM.init_cache``'s per-layer dicts. seq_logical: 'none'
-    (replicated seq), 'seq_shard' (data) or 'seq_shard_wide' (data+model)
-    for long-context."""
+    (replicated seq), 'seq_shard' (data), 'seq_model' (model; a rule
+    ``rules.serve_ctx`` adds) or 'seq_shard_wide' (data+model) for
+    long-context."""
     out = []
     for i in range(cfg.n_layers):
         if cfg.mixer_kind(i) == "attn":

@@ -23,6 +23,14 @@ of axes (``data``, ``model``) (and ``pod``, pure data parallelism):
   (Mamba-2's gated norm): its mean of squares summed over ``model``;
 - ``vocab_nll`` is the cross-entropy of a vocabulary split over ``model``:
   the max, the sum of exponentials and the label's logit reduced over it;
+- decode under ``rules.serve_ctx``'s layout: ``model_blocks`` gathers
+  column-split activations (the new token's q, k and v; Mamba-2's
+  projection and conv window; the logits' vocabulary) over ``model`` in
+  one collective, ``merge_attention`` merges each rank's
+  attention over its block of the cache's sequence by log-sum-exp in the
+  blocks' order, ``argmax_over_model`` takes the greedy token of a
+  vocabulary split over ``model`` (ties to the lower index), and
+  ``gather_batch`` gathers the sampled tokens over the batch axes;
 - ``finish_grads`` sums each gradient over the batch axes it is not
   already reduced over (replicated leaves over ``data``, every leaf over
   ``pod``), and ``global_norm`` counts each element of the sharded
@@ -88,6 +96,10 @@ class Plan:
         model = [self.axes[a] for a in ctx.rules["model"] if a in self.axes]
         self.model = model[0] if model else _NONE
         self.batch = [self.axes[a] for a in ctx.rules["batch"] if a in self.axes]
+        self.kv = [self.axes[a] for a in ctx.axes(ctx.kv_seq) or ()]
+        if any(ax is self.model for ax in self.kv[:-1]):
+            raise NotImplementedError(f"the decode cache's sequence over {ctx.axes(ctx.kv_seq)}: "
+                                      "model must be its last (fastest) axis")
 
     @property
     def batch_ways(self) -> int:
@@ -102,6 +114,23 @@ class Plan:
         """This rank's piece of the batch rows (the first axis the slowest)."""
         i = 0
         for ax in self.batch:
+            i = i * ax.size + ax.rank
+        return i
+
+    @property
+    def kv_ways(self) -> int:
+        """Ranks the decode cache's sequence is split over."""
+        n = 1
+        for ax in self.kv:
+            n *= ax.size
+        return n
+
+    @property
+    def kv_index(self) -> int:
+        """This rank's block of the decode cache's sequence (the first axis
+        the slowest)."""
+        i = 0
+        for ax in self.kv:
             i = i * ax.size + ax.rank
         return i
 
@@ -379,6 +408,78 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int) -> torch.Te
     inside = ((loc >= 0) & (loc < table.shape[0]))[..., None]
     rows = table[loc.clamp(0, table.shape[0] - 1)]
     return reduce_from_model(torch.where(inside, rows, rows.new_zeros(())))
+
+
+# -- decode -----------------------------------------------------------------------------------
+
+
+def model_blocks(*xs: torch.Tensor) -> list[torch.Tensor]:
+    """Every ``model`` rank's block of each (rows, w_i) ``x`` (an activation
+    this rank computed from its block of a column-split weight), in one
+    collective for all of them: (rows, ranks, w_i) each, in rank order."""
+    ax = model_axis()
+    if ax.size == 1:
+        return [x[:, None] for x in xs]
+    widths = [x.shape[-1] for x in xs]
+    both = _all_gather(torch.cat(xs, dim=-1), ax, 1)
+    return list(torch.split(both.reshape(both.shape[0], ax.size, -1), widths, dim=-1))
+
+
+def merge_attention(acc: torch.Tensor, mx: torch.Tensor, den: torch.Tensor, heads: slice,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Decode attention of the whole cache from each rank's partial over
+    its block of the sequence (``models.attention.decode_attention_partial``:
+    ``acc`` (B, Hq, D) the unnormalised sum, ``mx`` and ``den`` (B, Hq) the
+    running max and sum of exponentials, every head): this rank's ``heads``
+    (B, h, D) in ``dtype``. The partials of those heads come from every
+    rank of the cache's sequence axes (an all-to-all over ``model`` when
+    the sequence is split there, each rank sending every other its heads,
+    then a gather over the others) and are merged in the order of the
+    sequence's blocks: out = sum_r e^(m_r - M) acc_r / sum_r e^(m_r - M) l_r."""
+    plan = active()
+    part = torch.cat([acc, mx[..., None], den[..., None]], dim=-1).float()  # (B, Hq, D + 2)
+    b, hq, w = part.shape
+    kv = plan.kv if plan is not None else []
+    if kv and kv[-1] is plan.model and plan.model.size > 1:
+        m = plan.model
+        send = part.reshape(b, m.size, hq // m.size, w).transpose(0, 1)
+        parts = _all_to_all(send, m)  # (model ranks, B, h, D + 2): their blocks, my heads
+        kv = kv[:-1]
+    else:
+        parts = part[None, :, heads]
+    for ax in reversed(kv):  # the faster axes gathered first: the slowest ends outermost
+        if ax.size > 1:
+            parts = _all_gather(parts, ax, 0)
+    acc, mx, den = parts[..., :-2], parts[..., -2], parts[..., -1]
+    top = torch.amax(mx, dim=0)
+    scale = torch.exp(mx - top)  # a block with no valid row: e^(-1e30 - M) = 0
+    out = torch.sum(scale[..., None] * acc, dim=0) / torch.sum(scale * den, dim=0)[..., None]
+    return out.to(dtype)
+
+
+def argmax_over_model(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The index of the largest of each row's ``model``-rank maxima
+    (``values``, each rank's largest over its vocabulary block, ``index``
+    its global column): gathered over ``model``, the first rank's on a tie,
+    which is the lower index, as ``torch.argmax`` takes."""
+    ax = model_axis()
+    if ax.size == 1:
+        return index
+    pairs = _all_gather(torch.stack([values.double(), index.double()])[None], ax, 0)
+    best = torch.argmax(pairs[:, 0], dim=0)  # (rows,): the first rank holding the max
+    return torch.gather(pairs[:, 1], 0, best[None])[0].long()
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """The rows of every rank of the batch axes, in batch order (``x``
+    holds this rank's): the full batch on every rank."""
+    plan = active()
+    if plan is None:
+        return x
+    for ax in reversed(plan.batch):
+        if ax.size > 1:
+            x = _all_gather(x, ax, 0)
+    return x
 
 
 # -- the train step ---------------------------------------------------------------------------

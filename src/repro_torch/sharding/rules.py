@@ -27,6 +27,10 @@ its rank's block of the layout the constraint names, so ``shard`` returns
 ``x``. A ``MeshShape`` has no ranks: it sizes a deployment and does not run
 one, so ``shard`` under one of more than one rank raises.
 
+``serve_ctx`` is the reference's serve layout of a mesh: no FSDP, the
+decode cache's sequence split over ``model`` (or, for one sequence, over
+every rank), named by ``MeshCtx.kv_seq``.
+
 ``block`` cuts one rank's block of a full tensor under a spec (the ceiling
 split, zero-padded to ``local_shape``, so that every rank holds
 ``local_shape``'s bytes); ``distribute_state`` does so for every leaf of a
@@ -103,6 +107,7 @@ class MeshCtx:
     rules: dict[str, tuple[str, ...]] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_RULES))
     fsdp: bool = True  # False at serve time: weights replicated over data
+    kv_seq: str = "none"  # the logical axis of the decode cache's sequence
 
     def axes(self, logical: Optional[str]) -> Optional[tuple[str, ...]]:
         if logical is None or self.mesh is None:
@@ -140,6 +145,23 @@ def under_mesh_ctx(fn):
             set_mesh_ctx(prev)
 
     return run
+
+
+def serve_ctx(mesh: Optional[Mesh], batch: int, *,
+              rules: Optional[dict[str, tuple[str, ...]]] = None) -> MeshCtx:
+    """The reference's serve layout (``launch.specs``) of a decode batch of
+    ``batch`` sequences on ``mesh``: parameters replicated over ``data``
+    (no FSDP) and split over ``model``; the decode cache's sequence over
+    ``model`` ("seq_model", decode_32k's layout) with the batch over
+    (``pod``, ``data``), or, for one sequence, over ``data`` and ``model``
+    ("seq_shard_wide", long_500k's) with the batch unsplit. ``rules``: the
+    rules to start from (``DEFAULT_RULES``)."""
+    rules = dict(DEFAULT_RULES if rules is None else rules)
+    rules["seq_model"] = ("model",)
+    if batch == 1:
+        rules["batch"] = ()  # batch = 1: nothing to shard
+    return MeshCtx(mesh=mesh, rules=rules, fsdp=False,
+                   kv_seq="seq_shard_wide" if batch == 1 else "seq_model")
 
 
 @contextlib.contextmanager

@@ -6,15 +6,24 @@ timeout each) compute every configuration in one spawn; the parent asserts.
 The weights are the reference's ``init_params`` carried across by
 ``interop`` and cut to each rank's blocks by ``distribute_state``; each rank
 takes its rows of the same batches. Held, in fp32, to the reference's
-``jax.value_and_grad(loss_fn)`` and ``make_train_step`` run unsharded (JAX
-on the CPU) and to the port's one-rank step: the loss within 1e-5
-relative, every gradient (gathered to rank 0 by ``gather_state``) within
-1e-4 of its max, three steps' losses within 1e-4 relative and the params
-after them within 1e-5 of the one-rank run's. Meshes (4, 1), (2, 2) and
+``make_train_step`` run unsharded (JAX on the CPU; its first step's loss,
+and its gradient from AdamW's first moment) and to the port's one-rank
+step: the loss within 1e-5 relative, every gradient (gathered to rank 0 by
+``gather_state``) within 1e-4 of its max (a gradient 0 in exact arithmetic,
+the top_k = 1 router's, within 1e-6 of the model's largest), three steps'
+losses within 1e-4 relative (one at top_k = 1) and the params after them
+within 1e-2 of the steps' movement from the one-rank run's (a MoE case's
+over the entries whose first gradient lies beyond the leaf's rounding, its
+largest sharded-against-one-rank distance). Meshes (4, 1), (2, 2) and
 (1, 4); configurations: qwen3-32b's smoke (GQA, qk-norm), the same with a
 width and an ff that do not divide (padded blocks), gemma-2b's (one kv
-head, tied embedding), mamba2-370m's and Jamba's (MoE: FSDP only on
-``model`` = 1, a NotImplementedError naming ROADMAP A on more). Each rank's
+head, tied embedding), mamba2-370m's, and MoE in each of the reference's
+layouts: Jamba's (``auto``: ``replicate`` at smoke size; its drops at
+S = 32 counted from ``route_group``'s slots on every rank), Jamba's with
+``moe_sharding="ep"`` (experts over ``model``), granite-moe-3b-a800m's with
+``"tp"`` (each expert's ff columns over ``model``) and top_k 4 (a combine
+of four choices split across ranks), and llama4-scout's with ``"ep"``
+(top_k 1, a shared expert). Each rank's
 state bytes equal the dry run's for its ``MeshShape``; ``gather_state``
 inverts ``distribute_state`` bit for bit; each rank's ``CollectiveMeter``
 bytes equal ``chip_smoke.shard_step_bytes``, the closed form of the scheme;
@@ -36,7 +45,6 @@ import pytest
 import torch
 
 import repro.configs as jconfigs
-from repro.models import loss_fn as jloss_fn
 from repro.optim import OptConfig as JOptConfig
 from repro.training import make_train_step as jmake_train_step
 from repro.training import train_state_init as jtrain_state_init
@@ -50,14 +58,25 @@ from repro_torch.sharding import (MeshShape, PartitionSpec, activate_mesh, block
 from repro_torch.training import loss_and_grads, make_train_step, train_state_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
 MESHES = [(4, 1), (2, 2), (1, 4)]
 # name -> (arch, overrides of its smoke config)
 CONFIGS = {"qwen3": ("qwen3-32b", {}),
            "qwen3-uneven": ("qwen3-32b", {"d_model": 126, "d_ff": 250}),
            "gemma": ("gemma-2b", {}),
            "mamba2": ("mamba2-370m", {}),
-           "jamba": ("jamba-v0.1-52b", {})}
+           "jamba": ("jamba-v0.1-52b", {}),
+           "jamba-ep": ("jamba-v0.1-52b", {"moe_sharding": "ep"}),
+           "granite-tp": ("granite-moe-3b-a800m", {"moe_sharding": "tp", "top_k": 4}),
+           "llama4-ep": ("llama4-scout-17b-a16e", {"moe_sharding": "ep"})}
+#: the MoE cases, and the one that must drop choices at S = SEQ
+MOE = ("jamba", "jamba-ep", "granite-tp", "llama4-ep")
+DROPS = "jamba-ep"
 ROWS, SEQ, CHUNKS, STEPS = 4, 32, 4, 3
+#: a gradient that is 0 in exact arithmetic, against the model's largest
+#: (fp32 rounding leaves ~1e-8 of it)
+ZERO_TOL = 1e-6
 OPT = dict(peak_lr=3e-3, warmup=2, total_steps=10)
 
 
@@ -117,13 +136,11 @@ _RANK = textwrap.dedent("""
         sspecs = TrainState(pspecs, opt_state_specs(pspecs))
         lm = LM(cfg, device="meta")
         res = {}
-        try:
-            local = distribute_state(params, pspecs, mesh)
+        local = distribute_state(params, pspecs, mesh)
+        with chip_smoke.moe_drops() as calls:
             loss, grads = loss_and_grads(lm, local, rows(case["batches"][0]),
                                          loss_chunks=inp["chunks"])
-        except NotImplementedError as e:
-            out[name] = {"raised": str(e)}
-            continue
+        res["drops"] = [d for d, _ in calls]
         res["loss"] = float(loss)
         res["grads"] = gather_state(grads, pspecs, mesh, params)
         # the backward with no mesh ctx on its thread (on the card it runs on
@@ -165,6 +182,8 @@ _RANK = textwrap.dedent("""
             else:
                 state, m = step(state, rows(batch))
             res["losses"].append(float(m["loss"]))
+            if i == 0 and case["first_params"]:
+                res["params1"] = gather_state(state.params, pspecs, mesh, params)
         res["params"] = gather_state(state.params, pspecs, mesh, params)
         res["expected_bytes"] = chip_smoke.shard_step_bytes(
             cfg, dp, mp, case["batches"][0]["tokens"].shape[0] // plan.batch_ways,
@@ -199,36 +218,54 @@ def _one_thread():
 def cases():
     """Per configuration: the carried weights, the batches, and the
     reference's and the port's unsharded loss, gradient and steps."""
-    out = {}
+    out, seen = {}, {}
     for name in CONFIGS:
         jcfg, tcfg = _cfgs(name)
+        # the layout changes nothing on one rank: a case that differs from an
+        # earlier one in it alone shares that case's unsharded results
+        plain = dataclasses.replace(tcfg, moe_sharding="auto")
+        if plain in seen:
+            out[name] = {**out[seen[plain]], "cfg": tcfg}
+            continue
+        seen[plain] = name
         jstate = jtrain_state_init(jcfg, jax.random.PRNGKey(0))
         params = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jstate.params))
         batches = [_batch(tcfg, 10 + i) for i in range(STEPS)]
         tb = [{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()}
               for b in batches]
         jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
-        jl, jg = jax.jit(jax.value_and_grad(
-            lambda p: jloss_fn(p, jcfg, jb[0], n_chunks=CHUNKS)))(jstate.params)
-        jstep = jax.jit(jmake_train_step(jcfg, JOptConfig(**OPT), loss_chunks=CHUNKS))
+        jopt = JOptConfig(**OPT)
+        jstep = jax.jit(jmake_train_step(jcfg, jopt, loss_chunks=CHUNKS))
         jlosses = []
         for b in jb:
             jstate, jm = jstep(jstate, b)
             jlosses.append(float(jm["loss"]))
+            if len(jlosses) == 1:
+                # the reference's value_and_grad(loss_fn) at the initial params:
+                # the first step's loss, and its gradient from AdamW's first mu,
+                # (1 - b1) g min(1, clip / |g|)
+                scale = min(1.0, jopt.clip_norm / max(float(jm["grad_norm"]), 1e-9))
+                jg = jax.tree.map(lambda m: np.asarray(m) / ((1 - jopt.b1) * scale),
+                                  jstate.opt["mu"])
+        jl = jlosses[0]
         lm = LM(tcfg, device="cpu")
         lm.load_state_dict(params, strict=True)
         state = train_state_init(lm)
-        loss, grads = loss_and_grads(lm, state.params, tb[0], loss_chunks=CHUNKS)
+        with chip_smoke.moe_drops() as calls:
+            loss, grads = loss_and_grads(lm, state.params, tb[0], loss_chunks=CHUNKS)
+        drops = [d for d, _ in calls]
         step = make_train_step(tcfg, OptConfig(**OPT), loss_chunks=CHUNKS)
         losses = []
         for b in tb:
             state, m = step(state, b)
             losses.append(float(m["loss"]))
+            if len(losses) == 1:
+                first = {k: v.detach().clone() for k, v in state.params.items()}
         out[name] = {"cfg": tcfg, "params": params, "batches": tb,
                      "jax_loss": float(jl),
-                     "jax_grads": lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jg)),
+                     "jax_grads": lm_params_from_numpy(tcfg, jg),
                      "jax_losses": jlosses, "loss": float(loss), "grads": grads,
-                     "losses": losses,
+                     "losses": losses, "drops": drops, "first": first,
                      "final": {k: v.detach().clone() for k, v in state.params.items()}}
     return out
 
@@ -256,7 +293,8 @@ def mesh_run(request, cases, tmp_path_factory):
     dp, mp = request.param
     tmp = tmp_path_factory.mktemp(f"mesh{dp}x{mp}")
     inputs = {"chunks": CHUNKS, "opt": OPT,
-              "cases": {k: {"cfg": c["cfg"], "params": c["params"], "batches": c["batches"]}
+              "cases": {k: {"cfg": c["cfg"], "params": c["params"], "batches": c["batches"],
+                            "first_params": bool(_zero_leaves(c["cfg"]))}
                         for k, c in cases.items()}}
     from repro_torch.checkpoint import save_checkpoint
 
@@ -266,23 +304,32 @@ def mesh_run(request, cases, tmp_path_factory):
 
 
 def _sharded(mesh_run, cases, name):
-    """(mesh, the ranks' results, the unsharded ones); None where the
-    configuration must refuse the mesh (MoE on ``model`` > 1), which it did."""
+    """(mesh, rank 0's results, the unsharded ones)."""
     (dp, mp), out = mesh_run
-    res = out[name]
-    if name == "jamba" and mp > 1:
-        assert "ROADMAP A" in res["raised"] and "MoE" in res["raised"]
-        return None
-    assert "raised" not in res, res.get("raised")
-    return (dp, mp), res, cases[name]
+    return (dp, mp), out[name], cases[name]
 
 
-def _close(got: dict, want: dict, tol: float):
-    """Each leaf within ``tol`` of its own max|g|."""
+def _zero_leaves(cfg) -> set:
+    """The leaves whose gradient is 0 in exact arithmetic: the router at
+    top_k = 1, whose one choice's gate is renormalised to p / p = 1."""
+    if cfg.top_k != 1:
+        return set()
+    return {f"layers.{i}.moe.router" for i in range(cfg.n_layers) if cfg.mlp_kind(i) == "moe"}
+
+
+def _close(got: dict, want: dict, tol: float, zero: set = frozenset()):
+    """Each leaf within ``tol`` of its own max|g|; a leaf in ``zero`` (its
+    exact gradient 0, both sides fp32 rounding) is 0 on both sides to
+    within ZERO_TOL of the largest gradient of the model."""
     assert set(got) == set(want)
+    top = max(float(v.abs().max()) for v in want.values())
     bad = {}
     for k, v in got.items():
         assert v.shape == want[k].shape and v.dtype == want[k].dtype, k
+        if k in zero:
+            if not max(float(v.abs().max()), float(want[k].abs().max())) <= ZERO_TOL * top:
+                bad[k] = (float(v.abs().max()), float(want[k].abs().max()), top)
+            continue
         scale = float(want[k].abs().max())
         err = float((v - want[k]).abs().max())
         if not err <= tol * scale:
@@ -292,31 +339,48 @@ def _close(got: dict, want: dict, tol: float):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_sharded_loss_and_gradient_match_the_reference_and_one_rank(mesh_run, cases, name):
-    if (got := _sharded(mesh_run, cases, name)) is None:
-        return
-    _, res, case = got
+    _, res, case = _sharded(mesh_run, cases, name)
     for want in (case["jax_loss"], case["loss"]):
         assert abs(res["loss"] - want) <= 1e-5 * abs(want)
     assert res["other_thread"]
-    _close(res["grads"], case["jax_grads"], 1e-4)
-    _close(res["grads"], case["grads"], 1e-4)
+    zero = _zero_leaves(case["cfg"])
+    _close(res["grads"], case["jax_grads"], 1e-4, zero)
+    _close(res["grads"], case["grads"], 1e-4, zero)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_three_sharded_steps_match_the_reference_and_one_rank(mesh_run, cases, name):
-    if (got := _sharded(mesh_run, cases, name)) is None:
-        return
-    _, res, case = got
-    for got, jl, tl in zip(res["losses"], case["jax_losses"], case["losses"], strict=True):
+    _, res, case = _sharded(mesh_run, cases, name)
+    zero = _zero_leaves(case["cfg"])
+    # at top_k = 1 each side's router moves by its own rounding (a zero
+    # gradient through Adam's normalised update), so the routing of step 2
+    # on is each side's own: one step is held there
+    steps, params, final = ((1, res["params1"], case["first"]) if zero
+                            else (STEPS, res["params"], case["final"]))
+    assert len(res["losses"]) == STEPS
+    for got, jl, tl in zip(res["losses"][:steps], case["jax_losses"][:steps],
+                           case["losses"][:steps], strict=True):
         assert abs(got - jl) <= 1e-4 * abs(jl)
         assert abs(got - tl) <= 1e-4 * abs(tl)
     # AdamW on each rank's blocks with the global norm's clip: the one-rank
-    # params (relative to the steps' movement: Adam's normalised update turns
-    # a gradient entry near 0 into +-lr whatever its rounding)
-    worst = max(float(torch.linalg.vector_norm(v - case["final"][k]))
-                / float(torch.linalg.vector_norm(case["final"][k] - case["params"][k]))
-                for k, v in res["params"].items())
-    assert worst <= 1e-2
+    # params, relative to the steps' movement (Adam's normalised update
+    # turns a gradient entry near 0 into +-lr whatever its rounding). A MoE
+    # case holds the entries whose first gradient lies beyond the leaf's
+    # rounding, the largest distance of its sharded first gradient from the
+    # one-rank one: there both sides' first update, sign(g) lr, is the same,
+    # and an entry within it moves +-lr whichever its rounding gives (the
+    # zero leaves are all such entries)
+    worst = (0.0, None)
+    for k, v in params.items():
+        held = torch.ones(v.shape, dtype=torch.bool)
+        if name in MOE:
+            g = case["grads"][k]
+            held = (g.abs() > float((res["grads"][k] - g).abs().max())) & (k not in zero)
+        if held.any():
+            err = float(torch.linalg.vector_norm((v - final[k])[held]))
+            moved = float(torch.linalg.vector_norm((final[k] - case["params"][k])[held]))
+            worst = max(worst, (err / moved, k))
+    assert worst[0] <= 1e-2, worst
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -325,9 +389,7 @@ def test_state_bytes_identity_and_collective_bytes(mesh_run, cases, name):
     from repro_torch.launch.specs import train_specs
     from repro_torch.sharding import MeshCtx
 
-    if (got := _sharded(mesh_run, cases, name)) is None:
-        return
-    (dp, mp), res, case = got
+    (dp, mp), res, case = _sharded(mesh_run, cases, name)
     _, args = train_specs(case["cfg"], ROWS, SEQ,
                           MeshCtx(mesh=MeshShape(("data", "model"), (dp, mp))))
     dry = state_bytes(args, "train")
@@ -335,6 +397,18 @@ def test_state_bytes_identity_and_collective_bytes(mesh_run, cases, name):
     assert res["identity"]  # gather_state(distribute_state(s)) is s, bit for bit
     assert res["bytes"] == {**res["bytes"], **res["expected_bytes"]}
     assert sum(res["bytes"].values()) == sum(res["expected_bytes"].values()) > 0
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_routes_and_drops_alike_on_every_rank(mesh_run, cases, name):
+    """Every rank routes its rows as the one-rank step does: the same
+    choices dropped at capacity (counted from ``route_group``'s slots, once
+    per MoE layer and pass), whatever the layout splits over ``model``."""
+    (dp, mp), res, case = _sharded(mesh_run, cases, name)
+    # per call, each row's dropped choices: rank 0 holds the first ROWS / dp rows
+    assert res["drops"] == [per_row[:ROWS // dp] for per_row in case["drops"]]
+    if name == DROPS:
+        assert sum(map(sum, res["drops"])) > 0
 
 
 def test_a_one_rank_checkpoint_restores_onto_the_mesh_and_back(mesh_run, cases):
