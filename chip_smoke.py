@@ -3,10 +3,13 @@
 KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
 serving path, BLESS-Nystrom attention in gemma-2b, LM training (gemma-2b,
 mamba2-370m), the training launcher, GPipe, the LM sharded across ranks,
-MoE across the model axis and decode under a serving mesh on one H100.
+MoE across the model axis, decode under a serving mesh and the reference's
+padded attention heads (with BLESS cache compression under a mesh) on one
+H100.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
-    python3 chip_smoke.py --phase serve|train|launch|shard|shard_launch|moe_shard|serve_shard
+    python3 chip_smoke.py --phase serve|nystrom|train|launch|shard|shard_launch|moe_shard
+                         |serve_shard|padded_heads
                          [--tree DIR]   # one phase alone (of DIR's checkout: an A/B of two
                                         # commits on one card)
 
@@ -149,12 +152,19 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
 
   9. lm parity  K8 flash_attention and K9 ssd against their plain versions on
                 the card, fp32 and bf16: K8 causal and bidirectional, GQA
-                groups 1, 4 and 8, S in {1, 1 000, 2 053}, D in {17, 32, 80,
-                128} (D = 17 and S = 1 run the tensor-core kernel's padding),
-                and Jamba's layer (B = 4, Hq = 32, Hkv = 8, S = 2 048,
-                D = 128); the wide tiles: D = 256 causal and bidirectional at
-                S in {1, 1 000, 2 053}, gemma-2b's layer (B = 2, Hq = 8,
-                Hkv = 1, S = 2 048, D = 256) and the ragged D = 129 and 200;
+                groups 1, 4, 6 and 8, S in {1, 1 000, 2 053}, D in {17, 32,
+                80, 128} (D = 17 and S = 1 run the tensor-core kernel's
+                padding), Jamba's layer (B = 4, Hq = 32, Hkv = 8, S = 2 048,
+                D = 128), the reference's padded heads where the main path
+                runs them (granite-moe's prefill in phase 20 (a), B = 2,
+                Hq = 32, Hkv = 8, S = 512, D = 64; a qwen2-vl rank's in
+                20 (b), B = 2, Hq = 4, Hkv = 1, S = 1 280, D = 128) and
+                llama4-scout's (B = 1, Hq = 48, Hkv = 8, S = 1 024,
+                D = 128); the wide tiles: D = 256 causal and bidirectional
+                at S in {1, 1 000, 2 053}, gemma-2b's layer at its 16 padded
+                q heads (B = 2, Hq = 16, Hkv = 1, S = 2 048, D = 256: phase
+                15; B = 1, S = 8 192: phase 14's exact prefill) and at its
+                8 published ones, and the ragged D = 129 and 200;
                 K9 at S not a multiple of the chunk, at S = 4 100
                 (the state carried over 65 chunks, H = 12 not a multiple of
                 the 8-head scan group), Jamba's layer (B = 4, S = 2 048,
@@ -203,8 +213,9 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 the 7th step again: the same loss bits. (b) mamba2-370m, full
                 width and depth (48 layers, N = 128), 6 steps of 4 x 2 048
                 tokens, peak lr 1e-3. Gates: finite loss and grad_norm at
-                every step, the 6th step's loss below the 1st's, K8 (K9)
-                launched twice per
+                every step, the loss of each of two SyntheticLM batches no
+                step trains on (HELD_OUT) lower after the 6 steps than
+                before them, K8 (K9) launched twice per
                 attention (Mamba) layer and step (remat), every plain call on
                 the card a backward recompute. (c) One fp32 loss and gradient
                 of each, cut to 2 layers, B = 1, S = 256, on the card against
@@ -212,13 +223,14 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 1e-3 of its max|g|.
  16. launch     mamba2-370m at full width and depth (48 layers, bf16, K9 in
                 every layer). (a) `python -m repro_torch.launch.train --steps
-                8 --batch 4 --seq 2048 --ckpt-every 4 --log-every 1` as a
-                subprocess into D1; again into D2, SIGKILLed once step 4's
+                4 --batch 4 --seq 2048 --ckpt-every 2 --log-every 1` (cut
+                from 8 and 4 for the script's time limit) as a
+                subprocess into D1; again into D2, SIGKILLed once step 2's
                 checkpoint has committed, and relaunched with the same
-                flags. Gates: the relaunch restores at step 4; every
+                flags. Gates: the relaunch restores at step 2; every
                 logged step's loss and grad norm finite; K9 launched twice
                 per layer and step (remat; each launcher resets its counts
-                before a step and logs them); the step-8 checkpoints of D1
+                before a step and logs them); the step-4 checkpoints of D1
                 and D2 the same bits, every tensor of params and optimizer
                 state. Printed: tokens/s, median step, stragglers, save and
                 restore times, and beside them the dry run's per-rank bytes
@@ -239,21 +251,22 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 over data, tensor parallelism over model), four ranks
                 sharing the card over gloo. (a) `torchrun --nproc-per-node
                 4 -m repro_torch.launch.train --mesh local` (data = 4) on
-                mamba2-370m at full width and depth, bf16, 8 steps of 4 x
-                2 048 tokens (one row a rank), a checkpoint every 4 steps
+                mamba2-370m at full width and depth, bf16, 2 steps of 4 x
+                2 048 tokens (one row a rank), a checkpoint after each
                 (gathered to rank 0); once through, once SIGKILLed (the
-                whole process tree) after step 4's checkpoint and
-                relaunched. Gates: the step-8 checkpoints the same bits in
-                every leaf; step 1's loss within 1e-3 relative of phase
+                whole process tree) after step 1's checkpoint and
+                relaunched (--phase shard_launch: 8 steps, a checkpoint
+                every 4). Gates: the last step's checkpoints the same bits
+                in every leaf; step 1's loss within 1e-3 relative of phase
                 16's one-rank launcher; each rank's state bytes the dry
                 run's for MeshShape(("data", "model"), (4, 1)); K9 launched
                 twice per layer and step on every rank. Printed: each
                 rank's peak memory, tokens/s. (b) One fp32 step of
                 make_train_step on a (data 2, model 2) mesh, one row of 512
-                tokens a data rank, of qwen3-32b at full width cut to 2
-                layers (K8 on 32 q / 4 kv heads a rank) and of mamba2-370m
-                at full width cut to 8 layers (K9 on 16 of 32 heads; at 48
-                fp32's reordering noise passes the gate), the weights
+                tokens a data rank, of qwen3-32b at full width cut to 1
+                layer (K8 on 32 q / 4 kv heads a rank) and of mamba2-370m
+                at full width and depth (K9 on 16 of 32 heads; its gate
+                refereed by the same step on the host CPU), the weights
                 built from --seed here and read by each rank from a
                 one-rank checkpoint; then the same step unsharded on the
                 card once the ranks have exited. Gates: loss within 1e-5
@@ -269,9 +282,9 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 card once the ranks have exited. jamba-v0.1-52b at full
                 width cut to 2 layers (Mamba + dense MLP, Mamba + MoE; ep:
                 8 of 16 experts a rank; K9 in both) and granite-moe-3b-a800m
-                cut to 2 layers (tp forced: 256 of each of the 40 experts'
-                512 ff columns a rank, top_k 8; K8 on 12 of 24 q / 4 of 8 kv
-                heads). Gates: loss within 1e-5 relative; every gradient
+                cut to 1 layer (tp forced: 256 of each of the 40 experts'
+                512 ff columns a rank, top_k 8; K8 on 16 of its 32 padded q
+                / 4 of 8 kv heads). Gates: loss within 1e-5 relative; every gradient
                 leaf within 1e-4 of its max; each rank's bytes
                 shard_step_bytes (no norm); K8 / K9 in every layer on every
                 rank, twice (remat). Printed: peak memory, dropped share.
@@ -288,16 +301,45 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 ranks), (data 2, model 2), seq_model, cache 2 048:
                 prefill_logits of 4 x 32 tokens (K8, K9 on every rank);
                 ServeEngine with 4 slots: 2 requests of 32 tokens, a third
-                after 4 steps, 16 steps. (b) gemma-2b at full width and
+                after 2 steps, 8 steps. (b) gemma-2b at full width and
                 depth, one sequence, seq_shard_wide over all four ranks,
                 cache 32 768: prefill_logits of 128 tokens (K8), prefill,
-                32 greedy steps. Gates: prefill_logits and every decode
-                call's logits within 1e-4 of max, every call fed the
+                16 greedy steps ((a)'s steps cut from 16, (b)'s from 32,
+                for the script's time limit). Gates: prefill_logits and
+                every decode call's logits within 1e-4 of max, every call
+                fed the
                 unsharded call's tokens and positions, the same outputs
                 (the engine's tokens per slot, the greedy tokens); each
                 rank's cache bytes the dry run's, its bytes a step
                 decode_step_bytes, no plain call on the card in the
                 forward.
+ 20. padded_heads the reference's attention layout: q heads padded to a
+                multiple of 16 (under MHA the kv heads with them), q head h
+                reading kv head h // (padded q heads // kv heads), the
+                padded heads masked before wo; fp32, weights from --seed.
+                (a) granite-moe-3b-a800m at full width and depth (32 layers,
+                24 q heads padded to 32 over 8 kv heads: group 4, where the
+                published grouping is 3), on the card alone: prefill_logits
+                of 2 x 512 tokens (K8), then ServeEngine with 2 slots, each
+                fed 16 tokens of its row, and 16 greedy steps; refereed by
+                an MHA copy of the same weights whose wk / wv columns are
+                repeated by the reference's head map (K8 at group 1). (b)
+                qwen2-vl-2b at full width cut to 4 layers (12 q heads padded
+                to 16 over 2 kv heads: group 8), (data 1, model 4), four gloo
+                ranks sharing the card (one rank a card over NCCL on a
+                machine of four), model rank 3 holding only the padded heads
+                12-15: prefill_logits of 2 x 1 280 tokens (the first 1 024
+                the image's patch embeddings, M-RoPE), 8 decode calls on a
+                cache of 1 024 rows over model whose rows were filled from
+                the seed first, then bless_compress_cache of every layer's
+                blocks to 256 rows, each rank keeping its 64. Gates: the
+                logits of every prefill and decode call within 1e-4 of max
+                of the referee's (a) or the unsharded run's (b), the same
+                greedy tokens (a); each rank's compressed blocks bit for bit
+                the unsharded call's on the card of the cache the ranks
+                hold; each rank's cache bytes the dry run's and its bytes a
+                step decode_step_bytes (b); K8 in every layer of each
+                prefill, no plain call on the card.
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -308,9 +350,10 @@ and K8 also per query row: max|out_row - ref_row| <= the same factor *
 max|ref_row| (a causal row over many keys has outputs far below row 0's);
 decode against forward 5e-3 * max|logit| (tests/test_models.py); the
 sharded LM (phases 17-19) 1e-5 relative loss, 1e-4 * each gradient's max,
-decode logits 1e-4 * max (fp32) against the unsharded run; Nystrom
-attention card against CPU 1e-3 * max|out|; a training step's loss card
-against CPU 1e-4 relative, each gradient 1e-3 * its max|g|.
+decode logits 1e-4 * max (fp32) against the unsharded run (phase 20 too,
+(a) against its referee); Nystrom attention card against CPU 1e-3 *
+max|out|; a training step's loss card against CPU 1e-4 relative, each
+gradient 1e-3 * its max|g|.
 Any failed phase exits non-zero. The line before the last is the kernels'
 JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -2169,7 +2212,7 @@ def core_rest(device, t: dict, bless_t: dict, referee: dict, bless_test_error: f
 # 9-11. the LM: K8 and K9 parity, decode against forward, serving
 # ---------------------------------------------------------------------------
 
-#: K8 parity cases (B, Hq, Hkv, S, D, causal): GQA groups 1, 4 and 8, ragged S
+#: K8 parity cases (B, Hq, Hkv, S, D, causal): GQA groups 1, 4, 6 and 8, ragged S
 #: and D (D = 17 and S = 1 pad the tensor-core kernel's shared-memory tiles),
 #: and Jamba's attention layer at 4 prompts of 2 048 tokens.
 ATTN_CASES = [(1, 8, 8, 1000, 32, True), (1, 8, 2, 2053, 80, True), (1, 8, 1, 1000, 128, False),
@@ -2180,16 +2223,26 @@ ATTN_CASES = [(1, 8, 8, 1000, 32, True), (1, 8, 2, 2053, 80, True), (1, 8, 1, 10
               # Hkv = 1, S = 2 048), and the ragged D = 129 and 200
               (1, 8, 1, 1, 256, True), (1, 8, 1, 1000, 256, True), (1, 8, 2, 2053, 256, True),
               (1, 8, 1, 1, 256, False), (1, 8, 2, 1000, 256, False), (1, 8, 1, 2053, 256, False),
-              (2, 8, 1, 2048, 256, True), (1, 8, 2, 1000, 129, True), (1, 8, 1, 2053, 200, False)]
+              (2, 8, 1, 2048, 256, True), (1, 8, 2, 1000, 129, True), (1, 8, 1, 2053, 200, False),
+              # the reference's padded heads as the main paths run them: gemma-2b's
+              # 16 over one kv head in phase 15's steps and phase 14's exact prefill,
+              # granite-moe's 32 over 8 (group 4) in phase 20 (a), a qwen2-vl rank's 4
+              # of 16 over one of 2 (group 8) on model = 4 in phase 20 (b), and
+              # llama4-scout-17b-a16e's 48 over 8 (group 6)
+              (2, 16, 1, 2048, 256, True), (1, 16, 1, 8192, 256, True),
+              (2, 32, 8, 512, 64, True), (2, 4, 1, 1280, 128, True), (1, 48, 8, 1024, 128, True)]
 #: K9 parity cases (B, S, H, P, N, chunk): S not a multiple of the chunk, a
 #: state carried over 65 chunks with H not a multiple of the 8-head scan
 #: group, Jamba's Mamba layer at 4 prompts of 2 048 tokens with the model's
 #: chunk, and mamba2-370m's (N = 128) at 4 sequences of 2 048 tokens.
 SSD_CASES = [(1, 1000, 3, 64, 16, 64), (2, 2053, 4, 32, 8, 128), (1, 4100, 12, 64, 16, 64),
              (4, 2048, 128, 64, 16, 64), (4, 2048, 32, 64, 128, 64)]
-#: K8 at gemma-2b's attention layer (B, Hq, Hkv, S, D) and K9 at mamba2-370m's
-#: Mamba layer (B, S, H, P, N): phase 15's shapes, timed in phase 9.
-GEMMA_ATTN = (2, 8, 1, 2048, 256)
+#: K8 at gemma-2b's attention layer (B, Hq, Hkv, S, D), its 8 q heads padded
+#: to 16, and K9 at mamba2-370m's Mamba layer (B, S, H, P, N): phase 15's
+#: shapes, timed in phase 9; K8 also at gemma-2b's 8 published heads, timed
+#: beside them (the padding's cost in the kernel).
+GEMMA_ATTN = (2, 16, 1, 2048, 256)
+GEMMA_ATTN_PUBLISHED = (2, 8, 1, 2048, 256)
 MAMBA_SSD = (4, 2048, 32, 64, 128)
 
 
@@ -2468,7 +2521,7 @@ def serve(device, cfg=None, *, batch: int = 4, prompt: int = 2048, repeats: int 
     _free(device)
     # K8 and K9 at the prefill's shapes: Jamba's attention layer and Mamba layer
     res["kernels"] = lm_kernel_times(
-        device, (batch, cfg.n_heads, cfg.n_kv_heads, prompt, cfg.head_dim),
+        device, (batch, cfg.padded_heads(), cfg.padded_kv_heads(), prompt, cfg.head_dim),
         (batch, prompt, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state), mamba2.CHUNK,
         model_dtype(cfg), seed=seed, timed=on_card)
     _free(device)
@@ -2485,24 +2538,19 @@ def serve(device, cfg=None, *, batch: int = 4, prompt: int = 2048, repeats: int 
     return res
 
 
-def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 0,
-                    timed: bool = True, repeats: int = 5, plain_repeats: int = 2,
-                    default_chunk: int = 128) -> dict:
-    """K8 (causal) at ``attn_shape`` (B, Hq, Hkv, S, D) and K9 at
-    ``ssd_shape`` (B, S, H, P, N) and ``chunk``, on phase 9's inputs in
-    ``dtype``: parity with the plain version (phase 9's tolerances) and, if
-    ``timed``, CUDA-event times of kernel, plain version and library call
-    (SDPA for K8; none for K9) beside the bound (K9: the one-pass bound and
-    its design's, which counts the chunk states). K9 is also checked and
-    timed at the wrapper's ``default_chunk``."""
+def attn_times(device, attn_shape, dtype, *, seed: int = 0, timed: bool = True,
+               repeats: int = 5, plain_repeats: int = 2, bad: list | None = None) -> dict:
+    """K8 (causal) at ``attn_shape`` (B, Hq, Hkv, S, D) in ``dtype``: parity
+    with the plain version (phase 9's tolerances; a miss appended to
+    ``bad``) and, if ``timed``, CUDA-event times of kernel, plain version
+    and SDPA beside the bound."""
     def ms(fn, r):
         return _cuda_ms(fn, r) if timed else None
 
     from repro_torch.kernels import flash_attention_ops as fa
-    from repro_torch.kernels import ssd_ops as so
 
+    bad = [] if bad is None else bad
     bf16 = dtype == torch.bfloat16
-    out, bad = {}, []
     b, hq, hkv, s, d = attn_shape
     q, k, v = attention_inputs(device, b, hq, hkv, s, d, dtype, seed)
     o, r = (fa.flash_attention(q, k, v, causal=True).float(),
@@ -2516,7 +2564,7 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
     if not row_err <= row_tol:
         bad.append(f"flash_attention: row error {row_err:.3e} > {row_tol:.3e}")
     b_ms, b_by = attention_bound(b, hq, hkv, s, d, True, q.element_size())
-    out["flash_attention"] = {
+    res = {
         "shape": list(attn_shape), "dtype": str(dtype)[6:], "causal": True,
         "design": "mma.sync bf16" if bf16 else "fp32 FMA", "max_abs_err": err, "tol": tol,
         "row_err": row_err, "row_tol": row_tol,
@@ -2529,6 +2577,28 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
         "bound_fp32_ms": attention_bound(b, hq, hkv, s, d, True, q.element_size(),
                                          tensor_cores=False)[0]}
     del q, k, v
+    return res
+
+
+def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 0,
+                    timed: bool = True, repeats: int = 5, plain_repeats: int = 2,
+                    default_chunk: int = 128) -> dict:
+    """K8 (causal) at ``attn_shape`` (B, Hq, Hkv, S, D) and K9 at
+    ``ssd_shape`` (B, S, H, P, N) and ``chunk``, on phase 9's inputs in
+    ``dtype``: parity with the plain version (phase 9's tolerances) and, if
+    ``timed``, CUDA-event times of kernel, plain version and library call
+    (SDPA for K8; none for K9) beside the bound (K9: the one-pass bound and
+    its design's, which counts the chunk states). K9 is also checked and
+    timed at the wrapper's ``default_chunk``."""
+    def ms(fn, r):
+        return _cuda_ms(fn, r) if timed else None
+
+    from repro_torch.kernels import ssd_ops as so
+
+    bf16 = dtype == torch.bfloat16
+    out, bad = {}, []
+    out["flash_attention"] = attn_times(device, attn_shape, dtype, seed=seed, timed=timed,
+                                        repeats=repeats, plain_repeats=plain_repeats, bad=bad)
     bsz, sl, h, p, n = ssd_shape
     args = ssd_inputs(device, bsz, sl, h, p, n, dtype, seed + 100)
     stol = SSD_BF16_TOL if bf16 else SSD_TOL
@@ -2561,23 +2631,31 @@ def lm_kernel_times(device, attn_shape, ssd_shape, chunk, dtype, *, seed: int = 
     return out
 
 
-def wide_kernel_times(device, *, attn_shape=GEMMA_ATTN, ssd_shape=MAMBA_SSD, seed: int = 0,
+def wide_kernel_times(device, *, attn_shape=GEMMA_ATTN, ssd_shape=MAMBA_SSD,
+                      published_shape=GEMMA_ATTN_PUBLISHED, seed: int = 0,
                       timed: bool = True) -> dict:
     """Phase 9's times at this slice's shapes: K8 at gemma-2b's attention
     layer (``GEMMA_ATTN``) and K9 at mamba2-370m's Mamba layer
     (``MAMBA_SSD``, the model's chunk; N = 128 leaves no room for chunk 128),
     in bf16 (the models' dtype) and fp32 (phase 15 (c)'s): parity with the
     plain version and CUDA-event times of kernel, plain version and (K8)
-    SDPA beside the bound."""
+    SDPA beside the bound; then K8 at ``published_shape`` (gemma-2b's 8
+    published q heads), bf16, the same."""
     from repro_torch.models import mamba2
 
-    out = {}
+    out, bad = {}, []
     for dtype in (torch.bfloat16, torch.float32):
         got = lm_kernel_times(device, attn_shape, ssd_shape, mamba2.CHUNK, dtype, seed=seed,
                               timed=timed, default_chunk=mamba2.CHUNK)
         tag = "" if dtype == torch.bfloat16 else "@fp32"
         out[f"flash_attention@gemma{tag}"] = got["flash_attention"]
         out[f"ssd@mamba{tag}"] = got["ssd"]
+    out["flash_attention@gemma-published"] = attn_times(
+        device, published_shape, torch.bfloat16, seed=seed, timed=timed, bad=bad)
+    log(f"times flash_attention@gemma-published: "
+        f"{json.dumps(out['flash_attention@gemma-published'])}")
+    if bad:
+        raise PhaseError("K8 at gemma-2b's published heads: " + "; ".join(bad))
     return out
 
 
@@ -2746,6 +2824,13 @@ def nystrom(device, cfg=None, *, prompt: int = 8192, repeats: int = 2, seed: int
 #: warmup steps it fell to 12.741 at 5e-4, and mamba2-370m's from 11.217 to
 #: 11.189 at 1e-3.
 TRAIN_PEAK_LR = {"gemma-2b": 5e-4, "mamba2-370m": 1e-3}
+#: the SyntheticLM batches (by index) whose loss phase 15 compares before and
+#: after its steps: none of them is a training batch. The same batch on both
+#: sides: the loss of one batch against another's varies by more than six
+#: steps move it (PERF.md section 6). TRAINED: a batch the first step trains
+#: on, its loss logged before and after the steps beside them (no gate).
+HELD_OUT = (100, 101)
+TRAINED = (0,)
 #: warmup steps: the lr climbs over steps 1-3, so the first steps (whose
 #: AdamW moves are about the lr on every parameter, whatever its gradient)
 #: are not full-lr moves of the random parameters.
@@ -2781,7 +2866,8 @@ def train_run(device, cfg, *, batch: int, seq: int, peak_lr: float, steps: int =
     microbatches = 2 taken from it, the checkpoint restored into the state
     (through host memory) and the same step taken again: the two losses
     must be the same bits. Gates: loss and grad_norm finite at every step,
-    the last step's loss below the first's, the model's kernel (K8 for
+    the loss of each of HELD_OUT's batches (which no step trains on) lower
+    after the steps than before them, the model's kernel (K8 for
     attention, K9 for Mamba layers) launched in every layer of every forward
     (twice under remat: the backward recomputes each layer), and every plain
     call on the card a backward recompute."""
@@ -2791,7 +2877,7 @@ def train_run(device, cfg, *, batch: int, seq: int, peak_lr: float, steps: int =
     from repro_torch import kernels
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.data import SyntheticLM
-    from repro_torch.models import LM
+    from repro_torch.models import LM, loss_fn
     from repro_torch.training import copy_state_, make_train_step, train_state_init
 
     on_card = torch.device(device).type == "cuda"
@@ -2806,6 +2892,13 @@ def train_run(device, cfg, *, batch: int, seq: int, peak_lr: float, steps: int =
     opt = _opt_config(peak_lr)
     step = make_train_step(lm, opt, loss_chunks=loss_chunks)
     pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed, device=str(device))
+
+    def losses_at(batches) -> list[float]:  # the state's params are the model's own tensors
+        with torch.no_grad():
+            return [float(loss_fn(lm, pipe.batch_at(i), n_chunks=loss_chunks))
+                    for i in batches]
+
+    before, trained_before = losses_at(HELD_OUT), losses_at(TRAINED)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     records, bad = [], []
@@ -2837,18 +2930,22 @@ def train_run(device, cfg, *, batch: int, seq: int, peak_lr: float, steps: int =
     for i in range(steps):
         state, _, rec = one(step, i)
         records.append(rec)
+    after, trained_after = losses_at(HELD_OUT), losses_at(TRAINED)
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch, "seq": seq,
            "loss_chunks": loss_chunks, "peak_lr": opt.peak_lr, "clip": opt.clip_norm,
            "params": sum(p.numel() for p in state.params.values()), "init_s": init_s,
            "losses": [r["loss"] for r in records],
            "grad_norms": [r["grad_norm"] for r in records],
+           "held_out": {"batches": list(HELD_OUT), "before": before, "after": after},
+           "trained": {"batches": list(TRAINED), "before": trained_before,
+                       "after": trained_after},
            # the first step builds the workspace: the steady steps after it
            "ms_per_step": 1e3 * sum(r["s"] for r in records[1:]) / max(1, len(records) - 1),
            "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None}
     res["tokens_per_s"] = batch * seq / (res["ms_per_step"] / 1e3)
-    if not records[-1]["loss"] < records[0]["loss"]:
-        bad.append(f"the loss did not fall: {res['losses']}")
+    if not all(a < b for a, b in zip(after, before)):
+        bad.append(f"the held-out loss did not fall: {before} before the steps, {after} after")
     if resume:
         step2 = make_train_step(lm, opt, microbatches=2, loss_chunks=loss_chunks)
         tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -3308,8 +3405,8 @@ def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] 
     return res
 
 
-def launch(device, *, seed: int = 0, cfg=None, steps: int = 8, batch: int = 4,
-           seq: int = 2048, ckpt_every: int = 4, smoke: bool = False,
+def launch(device, *, seed: int = 0, cfg=None, steps: int = 4, batch: int = 4,
+           seq: int = 2048, ckpt_every: int = 2, smoke: bool = False,
            pipe_mb: tuple[int, int] = (1, 1024), pipe_overrides: dict | None = None) -> dict:
     """Phase 16: (a) the launcher on ``cfg`` (mamba2-370m at full width and
     depth), killed after a checkpoint and relaunched; (b) GPipe over two
@@ -3340,12 +3437,12 @@ SHARD_LOSS_RTOL = 1e-3
 #: (phase 15 (c)'s form): loss relative, each gradient over its max.
 TP_MESH = (2, 2)
 TP_LOSS_RTOL, TP_GRAD_TOL = 1e-5, 1e-4
-#: phase 17 (b)'s models at full width: qwen3-32b cut to this many layers,
-#: mamba2-370m at its full depth.
-TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen3-32b", 2
+#: phase 17 (b)'s models at full width: qwen3-32b cut to this many layers
+#: (from 2, for the script's time limit), mamba2-370m at its full depth.
+TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen3-32b", 1
 #: phase 17 (b)'s models whose gradient gate is refereed: at mamba2-370m's
-#: 48 layers fp32's own rounding reaches past TP_GRAD_TOL of some leaves'
-#: max|g|, so there each leaf's distance from the unsharded step on the card
+#: depth fp32's own rounding reaches past TP_GRAD_TOL of some leaves'
+#: max|g| (at 48 layers), so there each leaf's distance from the unsharded step on the card
 #: may exceed TP_GRAD_TOL by as much as the same unsharded step on the host
 #: CPU (another order of every sum, K9's plain version) lies from it at its
 #: worst leaf: the model's fp32 noise at that depth, measured in the run
@@ -3374,7 +3471,7 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
     remat each layer's forward runs twice, its trailing all-reduce once (the
     recompute stops at the last tensor the backward needs), and each loss
     chunk twice. A MoE layer split over ``model`` (``ep``: experts,
-    ``tp``: each expert's ff columns; ``cfg.moe_mode(SPEC_TP)``) gathers
+    ``tp``: each expert's ff columns; ``cfg.moe_mode(TP)``) gathers
     its rank's block of each expert leaf over ``data`` and adds one
     forward all-reduce of the partial combines and, backward, one of its
     input's gradient and one of the fp32 router's (d, E); a ``replicate``
@@ -3386,7 +3483,8 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
     a train step's; ``loss_and_grads`` takes none): one all-reduce per
     split axis of a float per group of leaves split alike."""
     from repro_torch.models import LM
-    from repro_torch.models.model import SPEC_TP, padded_vocab
+    from repro_torch.models.config import TP
+    from repro_torch.models.model import padded_vocab
     from repro_torch.sharding import MeshCtx, MeshShape, logical_to_spec
 
     it = 2 if cfg.dtype == "bfloat16" else 4
@@ -3409,7 +3507,7 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
     times = 2 if cfg.remat else 1
     for i in range(cfg.n_layers):
         if cfg.mixer_kind(i) == "attn":
-            hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            hq, hkv, hd = cfg.padded_heads(TP), cfg.padded_kv_heads(TP), cfg.head_dim
             gather((d, hq * hd), 0, 1, times=times)
             for _ in range(2):
                 gather((d, hkv * hd), 0, 1, hkv % mp != 0, times)
@@ -3433,10 +3531,10 @@ def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: in
             gather((ff, d), 1, 0, times=times)
             if mp > 1:
                 out["all-reduce"] += times * act + act
-        split = kind == "moe" and cfg.moe_mode(SPEC_TP) != "replicate"
+        split = kind == "moe" and cfg.moe_mode(TP) != "replicate"
         if kind == "moe":
             e, ff = cfg.n_experts, cfg.d_ff
-            up_dim, down_dim = {"ep": (0, 0), "tp": (2, 1)}.get(cfg.moe_mode(SPEC_TP),
+            up_dim, down_dim = {"ep": (0, 0), "tp": (2, 1)}.get(cfg.moe_mode(TP),
                                                                  (None, None))
             for _ in range(2 if gated else 1):
                 gather((e, d, ff), 1, up_dim, times=times)
@@ -3498,7 +3596,7 @@ def decode_step_bytes(cfg, dp: int, mp: int, batch: int, max_len: int, layout: s
     rank's heads from every rank of the sequence's axes, an all-to-all
     over ``model`` when the sequence is split there, then a gather over
     ``data`` of the ``model`` ranks' pieces (seq_shard_wide)."""
-    from repro_torch.models.model import SPEC_TP
+    from repro_torch.models.config import TP
 
     if layout not in ("seq_model", "seq_shard_wide"):
         raise ValueError(f"layout {layout!r}")
@@ -3524,7 +3622,7 @@ def decode_step_bytes(cfg, dp: int, mp: int, batch: int, max_len: int, layout: s
         out["all-reduce"] += ar  # the embedding lookup
     for i in range(cfg.n_layers):
         if cfg.mixer_kind(i) == "attn":
-            hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            hq, hkv, hd = cfg.padded_heads(TP), cfg.padded_kv_heads(TP), cfg.head_dim
             gather(rows, hq * hd)
             gather(rows, hkv * hd)
             gather(rows, hkv * hd)
@@ -3543,7 +3641,7 @@ def decode_step_bytes(cfg, dp: int, mp: int, batch: int, max_len: int, layout: s
                 out["all-reduce"] += ar + 4 * rows
         kind = cfg.mlp_kind(i)
         if mp > 1 and (kind == "dense"
-                       or (kind == "moe" and cfg.moe_mode(SPEC_TP) != "replicate")):
+                       or (kind == "moe" and cfg.moe_mode(TP) != "replicate")):
             out["all-reduce"] += ar
         if mp > 1 and kind == "moe" and cfg.shared_expert_ff:
             out["all-reduce"] += ar
@@ -3949,7 +4047,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     from repro_torch import kernels
     from repro_torch.data import SyntheticLM
     from repro_torch.models import LM, param_specs
-    from repro_torch.models.model import SPEC_TP
+    from repro_torch.models.config import TP
     from repro_torch.sharding import MeshCtx, MeshShape, block
 
     overrides = overrides or {}
@@ -4035,7 +4133,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
            "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
            "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
            "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS},
-           "moe_mode": cfg.moe_mode(SPEC_TP) if cfg.n_experts else None,
+           "moe_mode": cfg.moe_mode(TP) if cfg.n_experts else None,
            "dropped_share": [rk["routed"][0] / rk["routed"][1] if rk["routed"][1] else None
                              for rk in ranks]}
     log(f"{phase} {cfg.name}: {json.dumps(res)}")
@@ -4062,7 +4160,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
 
 
 def shard(device, *, seed: int = 0, launch_loss: float | None = None, cfg=None,
-          steps: int = 8, batch: int = 4, seq: int = 2048, ckpt_every: int = 4,
+          steps: int = 2, batch: int = 4, seq: int = 2048, ckpt_every: int = 1,
           smoke: bool = False, tp_seq: int = 512, tp_overrides: dict | None = None) -> dict:
     """Phase 17: (a) the launcher on SHARD_WORLD ranks sharing the card,
     killed after a checkpoint and relaunched; (b) one fp32 step on a
@@ -4107,10 +4205,11 @@ def shard_launch(device, *, seed: int = 0) -> dict:
 
 #: phase 18's models at full width, cut in depth, each in its MoE layout:
 #: Jamba's first two layers (Mamba + dense MLP, Mamba + MoE; ``ep``, its
-#: own ``moe_mode(16)``), granite-moe's first two (attention + MoE each;
-#: ``tp`` forced: its 512-wide ff makes ``auto`` ``replicate`` at 16).
+#: own ``moe_mode(16)``), granite-moe's first (attention + MoE; ``tp``
+#: forced: its 512-wide ff makes ``auto`` ``replicate`` at 16; 2 layers
+#: cut to 1 for the script's time limit).
 MOE_SHARD = {"jamba-v0.1-52b": ({"n_layers": 2}, "ep"),
-             "granite-moe-3b-a800m": ({"n_layers": 2, "moe_sharding": "tp"}, "tp")}
+             "granite-moe-3b-a800m": ({"n_layers": 1, "moe_sharding": "tp"}, "tp")}
 
 
 def moe_shard(device, *, seed: int = 0, seq: int = 512, overrides: dict | None = None,
@@ -4123,14 +4222,14 @@ def moe_shard(device, *, seed: int = 0, seq: int = 512, overrides: dict | None =
     each rank's bytes ``shard_step_bytes`` without the norm, K8 / K9 in
     every layer on every rank, twice under remat). ``overrides`` (the CPU
     rehearsal's widths) apply to both models."""
-    from repro_torch.models.model import SPEC_TP
+    from repro_torch.models.config import TP
 
     if torch.device(device).type == "cuda":
         build_kernels()  # the ranks' processes load this build
     res = {}
     for arch, (cut, mode) in MOE_SHARD.items():
         over = {**cut, **(overrides or {})}
-        if tp_config(arch, **over).moe_mode(SPEC_TP) != mode:
+        if tp_config(arch, **over).moe_mode(TP) != mode:
             raise PhaseError(f"moe_shard: {arch} is not in the {mode} layout")
         t0 = time.perf_counter()
         res[arch] = tensor_parallel(device, arch, seq=seq, seed=seed, overrides=over,
@@ -4152,9 +4251,9 @@ SERVE_MESH = (2, 2)
 #: max|logits| even with the MoE routing fixed, so no bf16 gate tells a
 #: right decode from a wrong one.
 SERVE_JAMBA_LAYERS = 5
-SERVE_PARTS = {"a": dict(batch=4, prompt=32, max_len=2048, steps=16, join_at=4,
+SERVE_PARTS = {"a": dict(batch=4, prompt=32, max_len=2048, steps=8, join_at=2,
                         draw_in_turn=True),  # four ranks' draws at once exceed the card
-               "b": dict(batch=1, prompt=128, max_len=32768, steps=32, draw_in_turn=False)}
+               "b": dict(batch=1, prompt=128, max_len=32768, steps=16, draw_in_turn=False)}
 #: phase 19's logits against the unsharded run's, over max|logits| (fp32)
 SERVE_FP32_TOL = 1e-4
 
@@ -4487,8 +4586,450 @@ def serve_shard(device, *, seed: int = 0, overrides: dict | None = None,
     return res
 
 
+# ---------------------------------------------------------------------------
+# 20. the reference's padded heads; BLESS cache compression under a mesh
+# ---------------------------------------------------------------------------
+
+#: phase 20's models in fp32, the reference's padding regrouping their GQA
+#: heads: (a) granite-moe-3b-a800m at full width and depth, 24 q heads padded
+#: to 32 over 8 kv heads (group 4 where the published grouping is 3),
+#: unsharded; (b) qwen2-vl-2b at full width cut to 4 layers, 12 q heads
+#: padded to 16 over 2 kv heads (group 8, not 6), on PADDED_MESH, where
+#: ``model`` rank 3 holds only the padded heads 12-15.
+PADDED_ARCHS = {"a": ("granite-moe-3b-a800m", {}), "b": ("qwen2-vl-2b", {"n_layers": 4})}
+PADDED_MESH = (1, 4)
+#: (a): ``prefill_logits`` of batch x prompt tokens; ``ServeEngine`` with one
+#: slot a row, each fed the first serve_prompt tokens of its row, then steps
+#: greedy steps. (b): ``prefill_logits`` of batch x prompt tokens (the first
+#: 1 024 the image's patch embeddings), steps decode calls on a cache of
+#: max_len rows, then each attention layer's cache compressed to m rows.
+PADDED_SHAPES = {"a": dict(batch=2, prompt=512, serve_prompt=16, steps=16),
+                 "b": dict(batch=2, prompt=1280, max_len=1024, steps=8, m=256)}
+#: phase 20's logits against the referee's and the unsharded run's, over max|logits| (fp32)
+PADDED_TOL = 1e-4
+
+
+def padded_config(part: str, **overrides):
+    """Phase 20 part ``part``'s model (PADDED_ARCHS), fp32."""
+    from repro_torch.configs import get_config
+
+    arch, cut = PADDED_ARCHS[part]
+    return dataclasses.replace(get_config(arch), **{"dtype": "float32", **cut, **overrides})
+
+
+def mha_referee(lm):
+    """An MHA copy of ``lm`` (the same weights, held, not copied) with one kv
+    head per padded q head: its ``wk`` / ``wv`` columns of padded q head h
+    are ``lm``'s of kv head ``h // (padded q heads // n_kv_heads)``, the
+    reference's head map written out here. Its attention runs at group 1."""
+    from repro_torch.models import LM
+    from repro_torch.models.config import TP
+
+    cfg = lm.cfg
+    hp, kvp, hd = cfg.padded_heads(TP), cfg.padded_kv_heads(TP), cfg.head_dim
+    heads = torch.tensor([h // (hp // kvp) for h in range(hp)])
+    blocks = {}
+    for name, t in lm.named_parameters():
+        if name.endswith((".attn.wk", ".attn.wv")):
+            t = t.detach().reshape(t.shape[0], kvp, hd)[:, heads.to(t.device)].reshape(
+                t.shape[0], hp * hd)
+        blocks[name] = t.detach()
+    return LM(dataclasses.replace(cfg, n_kv_heads=cfg.n_heads), device="meta").load_blocks(blocks)
+
+
+def _recording(lm, calls: list):
+    """``lm.decode_step`` recording each call's fp32 logits into ``calls``."""
+    step = lm.decode_step
+
+    def rec(cache, token, pos, *, length=None):
+        out = step(cache, token, pos, length=length)
+        calls.append(out.float().clone())
+        return out
+
+    lm.decode_step = rec
+
+
+def padded_unsharded(device, *, seed: int = 0, overrides: dict | None = None,
+                     **shape) -> dict:
+    """Phase 20 (a): ``prefill_logits`` and ``ServeEngine`` of the padded
+    model (K8 at the reference's group) against ``mha_referee`` of the same
+    weights (K8 at group 1). Gates: the prefill logits and every decode
+    call's within PADDED_TOL of max|logits|, the same greedy tokens, finite
+    logits; on the card K8 launched in every layer of the prefill and no
+    plain call on the card."""
+    from repro_torch import kernels
+    from repro_torch.models import LM
+    from repro_torch.models.config import TP
+    from repro_torch.serving import ServeEngine, prefill_logits
+
+    sh = {**PADDED_SHAPES["a"], **shape}
+    cfg = padded_config("a", **(overrides or {}))
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, seed=seed, device=str(device))
+    ref = mha_referee(lm)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(seed + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (sh["batch"], sh["prompt"]), generator=g)
+    bat = {"tokens": tokens.to(device)}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = prefill_logits(lm, bat).float()
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    launches, plain = kernels.launch_counts(), kernels.plain_counts()
+    want = prefill_logits(ref, bat).float()
+    runs = {}
+    for name, model in (("padded", lm), ("referee", ref)):
+        calls: list = []
+        _recording(model, calls)
+        eng = ServeEngine(model, max_len=sh["serve_prompt"] + sh["steps"] + 1,
+                          batch_slots=sh["batch"], device=str(device))
+        sync(device)
+        t0 = time.perf_counter()
+        for slot in range(sh["batch"]):
+            eng.add_request(slot, tokens[slot, :sh["serve_prompt"]].tolist())
+        for _ in range(sh["steps"]):
+            eng.step()
+        sync(device)
+        runs[name] = {"outputs": [eng.finish(s) for s in range(sh["batch"])], "calls": calls,
+                      "s": time.perf_counter() - t0}
+        del model.decode_step, eng
+    errs = [_leaf_err(a, b) for a, b in zip(runs["padded"]["calls"], runs["referee"]["calls"])]
+    finite = bool(torch.isfinite(got).all()) and all(bool(torch.isfinite(c).all())
+                                                    for c in runs["padded"]["calls"])
+    res = {"part": "a", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.padded_heads(TP)],
+           "group": cfg.padded_heads(TP) // cfg.padded_kv_heads(TP), **sh,
+           "prefill_err": _leaf_err(got, want), "calls": len(errs),
+           "step_err_worst": max(errs, default=math.inf),
+           "step_err_median": sorted(errs)[len(errs) // 2] if errs else math.inf,
+           "outputs_same": runs["padded"]["outputs"] == runs["referee"]["outputs"],
+           "outputs": runs["padded"]["outputs"], "finite": finite, "init_s": init_s,
+           "prefill_s": prefill_s, "engine_s": runs["padded"]["s"],
+           "referee_engine_s": runs["referee"]["s"],
+           "peak_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+           "launches": launches, "plain": plain}
+    del lm, ref, runs
+    _free(device)
+    log(f"padded_heads (a) {cfg.name}: {json.dumps(res)}")
+    bad = []
+    if not res["prefill_err"] <= PADDED_TOL:
+        bad.append(f"prefill_logits {res['prefill_err']:.3e} of max > {PADDED_TOL}")
+    if len(errs) != sh["batch"] * sh["serve_prompt"] + sh["steps"]:
+        bad.append(f"{len(errs)} decode calls on one side")
+    if not res["step_err_worst"] <= PADDED_TOL:
+        bad.append(f"decode calls up to {res['step_err_worst']:.3e} of max > {PADDED_TOL}")
+    if not res["outputs_same"]:
+        bad.append("the engine's tokens differ from the referee's")
+    if not finite:
+        bad.append("non-finite logits")
+    if on_card:
+        if launches["flash_attention"] != cfg.n_layers:
+            bad.append(f"K8 launched {launches['flash_attention']} times in the prefill, not "
+                       f"{cfg.n_layers}")
+        if any(v["cuda_calls"] for v in plain.values()):
+            bad.append(f"a plain version ran on the card: {plain}")
+    if bad:
+        raise PhaseError(f"padded_heads (a) {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def _padded_batch(cfg, inp: dict, rows: slice, device) -> dict:
+    """Phase 20 (b)'s prompt batch (rows ``rows``): tokens, the image's patch
+    embeddings over the first ``extra_image_tokens`` positions, M-RoPE
+    positions (three equal streams)."""
+    tokens = inp["tokens"][rows]
+    b, s = tokens.shape
+    pos = torch.arange(s).expand(b, 3, s)
+    return {"tokens": tokens.to(device), "pixel_embeds": inp["pixel_embeds"][rows].to(device),
+            "mrope_positions": pos.to(device)}
+
+
+def _padded_decode(lm, cache: list, inp: dict, rows: slice, device, first=None) -> list:
+    """Phase 20 (b)'s decode calls (rows ``rows``): call i feeds
+    ``inp["steps"][:, i]`` at position i, length i + 1, M-RoPE position i
+    on every stream; ``first`` wraps the first call (a meter). Returns the
+    fp32 logits of each call."""
+    out = []
+    for i in range(inp["steps"].shape[1]):
+        tok = inp["steps"][rows, i].to(device)
+        mpos = torch.full((tok.shape[0], 3, 1), i, device=device)
+        with first() if first is not None and i == 0 else contextlib.nullcontext():
+            out.append(lm.decode_step(cache, tok, i, length=i + 1, mrope_pos=mpos).float())
+    return out
+
+
+def padded_rank(rank: int, world: int, tmp: str, device: str, backend: str,
+                overrides: dict, mesh: tuple[int, int], seed: int) -> None:
+    """One rank of phase 20 (b), in its own process (``device`` the rank's
+    card, ``backend`` its group's): ``serve_ctx``'s layout on a (data, model)
+    ``DeviceMesh``, the seed's blocks drawn leaf by leaf, held by a
+    weightless LM. ``prefill_logits`` (K8 counted), the decode calls on
+    ``init_cache``'s blocks filled with the rank's block of the run's fill
+    (the first under a ``CollectiveMeter``), each call held to the
+    unsharded run's (the rank's rows and vocabulary block of its logits);
+    then ``bless_compress_cache`` of every attention layer's blocks, kept
+    with the blocks it compressed. Writes ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+    from repro_torch.launch.roofline import CollectiveMeter
+    from repro_torch.models import LM, init_blocks, param_specs
+    from repro_torch.models.attention import bless_compress_cache
+    from repro_torch.serving import prefill_logits
+    from repro_torch.sharding import collectives, serve_ctx, set_mesh_ctx
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.set_device(torch.device(device).index or 0)  # "cuda": the shared card
+        torch.cuda.init()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world)
+    try:
+        inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
+        cfg = padded_config("b", **overrides)
+        batch = inp["tokens"].shape[0]
+        dmesh = init_device_mesh(torch.device(device).type, mesh,
+                                 mesh_dim_names=("data", "model"))
+        ctx = serve_ctx(dmesh, batch)
+        set_mesh_ctx(ctx)
+        plan = collectives.active()
+        per = batch // plan.batch_ways
+        rows = slice(plan.batch_index * per, (plan.batch_index + 1) * per)
+        t0 = time.perf_counter()
+        lm = LM(cfg, device="meta").load_blocks(
+            init_blocks(cfg, param_specs(cfg, ctx), dmesh, seed=seed, device=device))
+        res = {"init_s": time.perf_counter() - t0}
+        lo = collectives.model_axis().rank
+
+        def err(out, ref):  # the rank's rows and vocabulary block against the whole call's
+            w = out.shape[1]
+            want = ref[rows, lo * w:(lo + 1) * w]
+            return (float((out.cpu()[:, :want.shape[1]] - want).abs().max())
+                    / max(float(ref.abs().max()), 1e-30))
+
+        kernels.reset_launch_counts()
+        got = prefill_logits(lm, _padded_batch(cfg, inp, rows, device)).float()
+        sync(device)
+        res.update(launches=kernels.launch_counts(), plain=kernels.plain_counts(),
+                   prefill_err=err(got, inp["prefill_ref"]))
+        cache = lm.init_cache(batch, inp["max_len"])
+        n = cache[0]["k"].shape[1]
+        at = slice(plan.kv_index * n, (plan.kv_index + 1) * n)
+        for c, (k, v) in zip(cache, inp["fill"]):
+            c["k"].copy_(k[rows, at])
+            c["v"].copy_(v[rows, at])
+        meter = CollectiveMeter()
+        sync(device)
+        t0 = time.perf_counter()
+        outs = _padded_decode(lm, cache, inp, rows, device, first=lambda: meter)
+        sync(device)
+        res.update(step_s=(time.perf_counter() - t0) / len(outs), bytes=dict(meter.bytes),
+                   errs=[err(o, r) for o, r in zip(outs, inp["refs"])],
+                   cache_bytes=sum(t.numel() * t.element_size() for c in cache
+                                   for t in c.values()))
+        t0 = time.perf_counter()
+        packed = [bless_compress_cache(c["k"], c["v"], inp["m"]) for c in cache]
+        sync(device)
+        res["compress_s"] = time.perf_counter() - t0
+        res.update(kv_index=plan.kv_index, rows=(rows.start, rows.stop),
+                   cache=[(c["k"].cpu(), c["v"].cpu()) for c in cache],
+                   packed=[(kc.cpu(), vc.cpu()) for kc, vc in packed],
+                   peak_bytes=torch.cuda.max_memory_allocated() if on_card else None)
+        torch.save(res, f"{tmp}/rank{rank}.pt")
+    finally:
+        set_mesh_ctx(None)
+        dist.destroy_process_group()
+
+
+def padded_mesh(device, *, seed: int = 0, overrides: dict | None = None,
+                mesh: tuple[int, int] = PADDED_MESH, cards: int = 1, timeout: float = 600.0,
+                **shape) -> dict:
+    """Phase 20 (b): the unsharded model on the card first (``prefill_logits``
+    and the decode calls on a cache whose rows are first filled from the
+    seed), every result kept, the model freed; then ``padded_rank`` on the
+    mesh's ranks, sharing the card over gloo, or one a card over NCCL when
+    ``cards`` holds the mesh. The fill stands for earlier traffic: each
+    call's length masks the rows past its position, so the logits see only
+    the rows the calls wrote, and the compression sees a whole cache.
+    Gates: ``prefill_logits`` and every decode call within PADDED_TOL of
+    max|logits| of the unsharded call's; every rank's compressed blocks bit
+    for bit the unsharded ``bless_compress_cache`` on the card of the cache
+    the ranks hold, assembled from their blocks (the rows the calls wrote
+    carry the ranks' rounding, not the unsharded run's); each
+    rank's cache bytes the dry run's and its bytes for one step
+    ``decode_step_bytes``; on the card K8 in every layer of the prefill on
+    every rank and no plain call on the card."""
+    import tempfile
+
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.specs import cache_sds
+    from repro_torch.models import LM
+    from repro_torch.models.attention import bless_compress_cache
+    from repro_torch.serving import prefill_logits
+    from repro_torch.sharding import MeshCtx, MeshShape
+
+    sh = {**PADDED_SHAPES["b"], **shape}
+    overrides = overrides or {}
+    cfg = padded_config("b", **overrides)
+    on_card = torch.device(device).type == "cuda"
+    world = mesh[0] * mesh[1]
+    per_card = on_card and cards >= world
+    g = torch.Generator().manual_seed(seed + 5)
+    batch, prompt, max_len = sh["batch"], sh["prompt"], sh["max_len"]
+    inp = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g),
+           "pixel_embeds": torch.randn((batch, cfg.extra_image_tokens, cfg.d_model), generator=g),
+           "steps": torch.randint(0, cfg.vocab_size, (batch, sh["steps"]), generator=g),
+           "max_len": max_len, "m": sh["m"]}
+    lm = LM(cfg, seed=seed, device=str(device))
+    every = slice(None)
+    inp["prefill_ref"] = prefill_logits(lm, _padded_batch(cfg, inp, every, device)).float().cpu()
+    cache = lm.init_cache(batch, max_len)
+    inp["fill"] = [(torch.randn(c["k"].shape, generator=g), torch.randn(c["v"].shape, generator=g))
+                   for c in cache]
+    for c, (k, v) in zip(cache, inp["fill"]):
+        c["k"].copy_(k)
+        c["v"].copy_(v)
+    sync(device)
+    t0 = time.perf_counter()
+    inp["refs"] = [o.cpu() for o in _padded_decode(lm, cache, inp, every, device)]
+    sync(device)
+    unsharded_step_s = (time.perf_counter() - t0) / sh["steps"]
+    del lm, cache
+    _free(device)
+    backend = "nccl" if per_card else "gloo"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_padded_") as tmp:
+        torch.save(inp, f"{tmp}/inputs.pt")
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(world):
+                dev = f"cuda:{r}" if per_card else str(device)
+                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                        f"chip_smoke.padded_rank({r}, {world}, {tmp!r}, {dev!r}, {backend!r}, "
+                        f"{overrides!r}, {tuple(mesh)!r}, {seed})")
+                with open(f"{tmp}/rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"padded_heads (b): the {world} ranks did not finish in "
+                             f"{timeout} s") from None
+        finally:
+            for p in procs:
+                p.kill()
+        wall_s = time.perf_counter() - t0
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = "".join(f"\nrank {r}:\n"
+                            + pathlib.Path(f"{tmp}/rank{r}.log").read_text()[-1500:]
+                            for r in failed)
+            raise PhaseError(f"padded_heads (b) {cfg.name}: ranks {failed} failed:{tails}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+    # the unsharded call on the ranks' cache, assembled from their blocks (the
+    # rows the decode calls wrote are the ranks' own rounding of the unsharded
+    # run's), against each rank's block of the compressed cache
+    m, ways = sh["m"], mesh[1]  # seq_model: the sequence over model
+    for rk in ranks:
+        rk["compress_equal"] = []
+    for layer in range(cfg.n_layers):
+        by_rows: dict = {}
+        for rk in ranks:
+            by_rows.setdefault(rk["rows"], {})[rk["kv_index"]] = rk["cache"][layer]
+        want = {}
+        for rows, blocks in by_rows.items():
+            k, v = (torch.cat([blocks[i][part] for i in range(ways)], dim=1).to(device)
+                    for part in (0, 1))
+            want[rows] = [t.cpu() for t in bless_compress_cache(k, v, m)]
+        for rk in ranks:
+            at = slice(rk["kv_index"] * (m // ways), (rk["kv_index"] + 1) * (m // ways))
+            rk["compress_equal"].append(all(torch.equal(got, w[:, at]) for got, w in
+                                            zip(rk["packed"][layer], want[rk["rows"]])))
+    for rk in ranks:
+        del rk["cache"], rk["packed"]
+    dry = tree_bytes(cache_sds(cfg, batch, max_len,
+                               MeshCtx(mesh=MeshShape(("data", "model"), tuple(mesh)))))
+    expect = decode_step_bytes(cfg, mesh[0], mesh[1], batch, max_len, "seq_model")
+    res = {"part": "b", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.padded_heads()],
+           "group": cfg.padded_heads() // cfg.padded_kv_heads(), "mesh": list(mesh),
+           "backend": backend, **sh, "tol": PADDED_TOL,
+           "prefill_err": [rk["prefill_err"] for rk in ranks],
+           "step_err_worst": max(max(rk["errs"]) for rk in ranks),
+           "compress_equal": [all(rk["compress_equal"]) for rk in ranks],
+           "rank_cache_bytes": [rk["cache_bytes"] for rk in ranks], "dryrun_cache_bytes": dry,
+           "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
+           "step_ms": [1e3 * rk["step_s"] for rk in ranks],
+           "unsharded_step_ms": 1e3 * unsharded_step_s,
+           "compress_s": [rk["compress_s"] for rk in ranks], "wall_s": wall_s,
+           "init_s": [rk["init_s"] for rk in ranks],
+           "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
+           "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
+           "plain": [rk["plain"] for rk in ranks],
+           "launches": {n: sum(rk["launches"][n] for rk in ranks) for n in LM_KERNELS}}
+    log(f"padded_heads (b) {cfg.name}: {json.dumps(res)}")
+    bad = []
+    for r, rk in enumerate(ranks):
+        if not rk["prefill_err"] <= PADDED_TOL:
+            bad.append(f"rank {r}'s prefill_logits {rk['prefill_err']:.3e} of max > {PADDED_TOL}")
+        if len(rk["errs"]) != sh["steps"] or not max(rk["errs"]) <= PADDED_TOL:
+            bad.append(f"rank {r}'s decode calls {rk['errs']} of max (gate {PADDED_TOL})")
+        if not all(rk["compress_equal"]):
+            bad.append(f"rank {r}'s compressed cache differs from the unsharded call's in "
+                       f"layers {[i for i, ok in enumerate(rk['compress_equal']) if not ok]}")
+        if rk["cache_bytes"] != dry:
+            bad.append(f"rank {r}'s cache {rk['cache_bytes']} B, the dry run's {dry}")
+        got = {k: rk["bytes"][k] for k in expect}
+        if got != expect or sum(rk["bytes"].values()) != sum(expect.values()):
+            bad.append(f"rank {r}'s collective bytes {rk['bytes']} against {expect}")
+    if on_card:
+        for r, (rl, pl) in enumerate(zip(res["rank_launches"], res["plain"])):
+            if rl["flash_attention"] != cfg.n_layers:
+                bad.append(f"rank {r} launched {rl} in prefill_logits")
+            if any(v["cuda_calls"] for v in pl.values()):
+                bad.append(f"rank {r} called a plain version on the card: {pl}")
+    if bad:
+        raise PhaseError(f"padded_heads (b) {cfg.name} failed: " + "; ".join(bad))
+    return res
+
+
+def padded_heads(device, *, seed: int = 0, overrides: dict | None = None,
+                 timeout: float = 600.0, **shapes) -> dict:
+    """Phase 20: ``padded_unsharded`` (a) and ``padded_mesh`` (b), (b) one
+    rank a card when the machine has the mesh's cards; ``overrides`` and
+    ``shapes`` ({"a": {...}, "b": {...}}) are the CPU rehearsal's."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        build_kernels()  # the ranks' processes load this build
+    over = overrides or {}
+    res = {}
+    t0 = time.perf_counter()
+    res["a"] = padded_unsharded(device, seed=seed, overrides=over.get("a"), **shapes.get("a", {}))
+    res["a"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = padded_mesh(device, seed=seed, overrides=over.get("b"), timeout=timeout,
+                           cards=torch.cuda.device_count() if on_card else 1,
+                           **shapes.get("b", {}))
+    res["b"]["phase_s"] = time.perf_counter() - t0
+    res["launches"] = {n: res["a"]["launches"][n] + res["b"]["launches"][n] for n in LM_KERNELS}
+    return res
+
+
 #: the phases ``--phase`` runs alone (each a function of this script).
-ALONE = ("serve", "train", "launch", "shard", "shard_launch", "moe_shard", "serve_shard")
+ALONE = ("serve", "nystrom", "train", "launch", "shard", "shard_launch", "moe_shard",
+         "serve_shard", "padded_heads")
 
 
 def run_alone(names, tree: str | None, seed: int) -> int:
@@ -4507,8 +5048,11 @@ def run_alone(names, tree: str | None, seed: int) -> int:
         for name in names:
             t0 = time.perf_counter()
             res = getattr(mod, name)("cuda", seed=seed)
-            keep = {k: v for k, v in res.items() if k in ("decode_ms_per_step",
-                                                          "prefill_tokens_per_s", "add_request_s")}
+            keep = {k: v for k, v in res.items() if k in (
+                "decode_ms_per_step", "prefill_tokens_per_s", "add_request_s",
+                "nystrom_prefill_s", "exact_prefill_s")}
+            keep.update({f"{k} ms_per_step": v["ms_per_step"] for k, v in res.items()
+                         if isinstance(v, dict) and "ms_per_step" in v})
             log(f"alone {name} ({tree or 'this tree'}): {time.perf_counter() - t0:.1f} s "
                 f"{json.dumps(keep)}")
     except mod.PhaseError as e:
@@ -4592,6 +5136,8 @@ def main(argv=None) -> int:
         mark("moe_shard")
         srs = serve_shard("cuda", seed=args.seed)
         mark("serve_shard")
+        pad = padded_heads("cuda", seed=args.seed)
+        mark("padded_heads")
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
@@ -4600,9 +5146,10 @@ def main(argv=None) -> int:
     # phase 13's sharded and guarded fits (its ranks' too) for K1-K7; for K8 and
     # K9 the LM forward of phase 10, the prefill + serving of phase 11, phase
     # 14's exact prefill, phase 15's training steps, phase 16's launcher
-    # runs and pipeline ranks, phase 17's sharded ranks, phase 18's MoE ranks
-    # and the prefill_logits of phase 19's serving ranks
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd, moe, srs)
+    # runs and pipeline ranks, phase 17's sharded ranks, phase 18's MoE ranks,
+    # the prefill_logits of phase 19's serving ranks, and phase 20's padded
+    # prefill and its ranks' prefill_logits
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd, moe, srs, pad)
     launches = {name: sum(p["launches"].get(name, 0) for p in paths)
                 for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -4678,10 +5225,13 @@ def main(argv=None) -> int:
         f"{srv['kernels']['ssd_chunk128']['ms']:.4f} ms, plain "
         f"{srv['kernels']['ssd_chunk128']['plain_ms']:.4f} ms)")
     g16, m16 = wide["flash_attention@gemma"], wide["ssd@mamba"]
-    g32 = wide["flash_attention@gemma@fp32"]
+    g32, g8 = wide["flash_attention@gemma@fp32"], wide["flash_attention@gemma-published"]
     log(f"K8 at gemma-2b's layer {json.dumps(list(GEMMA_ATTN))}, bf16: {g16['ms']:.4f} ms "
         f"(bound {g16['bound_ms']:.4f}, {g16['bound_by']}; SDPA {g16['library_ms']:.4f}; plain "
-        f"{g16['plain_ms']:.3f}); fp32 {g32['ms']:.4f} ms (SDPA {g32['library_ms']:.4f}); K9 "
+        f"{g16['plain_ms']:.3f}); fp32 {g32['ms']:.4f} ms (SDPA {g32['library_ms']:.4f}); at "
+        f"its published heads {json.dumps(list(GEMMA_ATTN_PUBLISHED))}, bf16: {g8['ms']:.4f} "
+        f"ms (bound {g8['bound_ms']:.4f}; SDPA {g8['library_ms']:.4f}; plain "
+        f"{g8['plain_ms']:.3f}); K9 "
         f"at mamba2-370m's layer {json.dumps(list(MAMBA_SSD))}, bf16: {m16['ms']:.4f} ms "
         f"(bound {m16['bound_ms']:.4f}, {m16['bound_by']}; plain {m16['plain_ms']:.3f})")
     ly, cp = nys["layer"], nys["compress"]
@@ -4698,7 +5248,10 @@ def main(argv=None) -> int:
         log(f"train {t['arch']} ({t['n_layers']} layers, {t['dtype']}, {t['batch']} x "
             f"{t['seq']}, peak lr {t['peak_lr']}): {t['ms_per_step']:.1f} ms per step, "
             f"{t['tokens_per_s']:.1f} tokens/s, max allocated {t['max_memory_allocated']} B, "
-            f"losses {json.dumps([round(x, 4) for x in t['losses']])}"
+            f"losses {json.dumps([round(x, 4) for x in t['losses']])}; held-out "
+            f"{json.dumps(t['held_out']['before'])} -> {json.dumps(t['held_out']['after'])}, "
+            f"trained batch {json.dumps(t['trained']['before'])} -> "
+            f"{json.dumps(t['trained']['after'])}"
             + (f"; resume: save {resume['save_s']:.1f} s, restore {resume['restore_s']:.1f} s, "
                f"bit-identical {resume['bit_identical']}" if resume else ""))
     log("train parity (fp32, card against CPU; loss relative, worst gradient over its max): "
@@ -4753,6 +5306,20 @@ def main(argv=None) -> int:
             f"{json.dumps([round(x, 2) for x in r['step_ms_median']])} ms a step; cache "
             f"{r['rank_cache_bytes'][0]} B a rank; bytes a step {json.dumps(r['bytes'][0])}; peak "
             f"{json.dumps(r['rank_peak_bytes'])} B; phase {r['phase_s']:.1f} s")
+    pa, pb = pad["a"], pad["b"]
+    log(f"padded_heads (a) {pa['arch']} ({pa['n_layers']} layers, fp32, heads "
+        f"{json.dumps(pa['heads'])}, group {pa['group']}) against its MHA referee: prefill_logits "
+        f"{pa['prefill_err']:.3e}, decode calls median {pa['step_err_median']:.3e}, worst "
+        f"{pa['step_err_worst']:.3e} of max|logits| over {pa['calls']} calls; tokens alike "
+        f"{pa['outputs_same']}; prefill {pa['prefill_s']:.3f} s, engine {pa['engine_s']:.2f} s; "
+        f"peak {pa['peak_bytes']} B; {pa['phase_s']:.1f} s")
+    log(f"padded_heads (b) {pb['arch']} ({pb['n_layers']} layers, fp32, heads "
+        f"{json.dumps(pb['heads'])}, group {pb['group']}, mesh {json.dumps(pb['mesh'])}, "
+        f"{pb['backend']}): prefill_logits {max(pb['prefill_err']):.3e}, decode calls worst "
+        f"{pb['step_err_worst']:.3e} of max|logits|; compressed to {pb['m']} rows bit for bit "
+        f"{pb['compress_equal']}; decode {json.dumps([round(x, 2) for x in pb['step_ms']])} ms a "
+        f"call against {pb['unsharded_step_ms']:.2f} unsharded; peak "
+        f"{json.dumps(pb['rank_peak_bytes'])} B; {pb['phase_s']:.1f} s")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
     log("phase seconds: " + json.dumps({name: round(t - marks[i][1], 1)

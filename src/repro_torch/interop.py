@@ -67,10 +67,6 @@ def model_from_numpy(centers, alpha, kernel_name: str, sigma: float, kappa_sq: f
                        n_train=None if n_train is None else int(n_train), a_diag=t(a_diag))
 
 
-#: the reference's model-axis width, to which it pads q heads (``model.py:TP``).
-REFERENCE_TP = 16
-
-
 def _tensor(a) -> torch.Tensor:
     """A CPU tensor of numpy array ``a``, dtype kept (ml_dtypes bfloat16 too)."""
     a = np.ascontiguousarray(a)
@@ -79,44 +75,17 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def regroups(cfg: ArchConfig, hp: int) -> bool:
-    """Whether padding ``cfg``'s q heads to ``hp`` sends some real q head to
-    another kv head than the unpadded grouping does (kv heads are padded with
-    the q heads when ``n_kv_heads == n_heads``, so such configurations keep
-    their grouping)."""
-    if cfg.n_kv_heads == cfg.n_heads:
-        return False
-    padded, real = hp // cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    return any(h // padded != h // real for h in range(cfg.n_heads))
-
-
 def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tensor]:
     """The port's ``LM(cfg).state_dict()`` (CPU tensors, dtypes kept) from the
     reference's ``init_params(cfg, key)`` pytree given as numpy arrays.
 
     The reference stacks each period position j over groups
     (``blocks/blk{j}``, leading axis g); layer ``g * period + j`` of the port
-    gets slice g. The reference pads q heads to a multiple of its 16-way
-    model axis (and, when ``n_kv_heads == n_heads``, the kv heads with them)
-    and masks the padded heads before ``wo``; their ``wq`` columns, ``wk`` /
-    ``wv`` columns and ``wo`` rows are dropped, which is exact whenever every
-    real q head reads the same kv head in both models. The reference sends q
-    head h to kv head ``h // (hp // n_kv_heads)`` (``hp`` the padded count, or
-    the kv heads padded with the q heads when ``n_kv_heads == n_heads``); the
-    port sends it to ``h // (n_heads // n_kv_heads)``. A configuration in which
-    some real head ``h < n_heads`` goes to another kv head under the padded
-    grouping (granite-moe's 24 over 8, llama4-scout's 40 over 8, qwen2-vl's 12
-    over 2) is not the unpadded model the port runs, and raises; multi-query
-    configurations (one kv head) and unpadded ones never do.
+    gets slice g. Every other leaf comes across one to one: the port builds
+    attention with the reference's padded heads (``models.model``), so the
+    padded ``wq`` / ``wk`` / ``wv`` columns and ``wo`` rows are its own,
+    for every configuration (ROADMAP C.2c).
     """
-    hp = cfg.padded_heads(REFERENCE_TP)
-    if regroups(cfg, hp):
-        raise ValueError(
-            f"{cfg.name}: the reference pads {cfg.n_heads} q heads to {hp} over "
-            f"{cfg.n_kv_heads} kv heads, which regroups the real heads; its model is not "
-            "the unpadded one the port runs")
-    q_cols = cfg.n_heads * cfg.head_dim
-    kv_cols = cfg.n_kv_heads * cfg.head_dim
     out: dict[str, torch.Tensor] = {}
 
     def put(path: tuple[str, ...], tree) -> None:
@@ -125,15 +94,7 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict) -> dict[str, torch.Tenso
                 put(path + (key,), val)
             return
         for g, name in enumerate(lm_param_names(cfg, path)):
-            a = np.asarray(tree)[g] if path[0] == "blocks" else tree
-            if len(path) > 1 and path[-2] == "attn":
-                if path[-1] == "wq":
-                    a = a[:, :q_cols]
-                elif path[-1] in ("wk", "wv"):
-                    a = a[:, :kv_cols]
-                elif path[-1] == "wo":
-                    a = a[:q_cols]
-            out[name] = _tensor(a)
+            out[name] = _tensor(np.asarray(tree)[g] if path[0] == "blocks" else tree)
 
     for name in ("final_norm", "embed", "out_head", "blocks"):
         if name in params:

@@ -1,11 +1,9 @@
 """Analytic FLOP / HBM-byte model for the roofline, and a FLOP counter.
 
 The port of ``repro.launch.cost_model`` (plain arithmetic over
-``ArchConfig``, copied). The reference counts the q heads it pads to its
-16-way model axis (``TP = 16``) as spent FLOPs; here the width is the ``tp``
-argument: ``tp=16`` gives the reference's numbers exactly (the dry run's
-production meshes), ``tp=1``, the default, counts the unpadded heads the
-port runs.
+``ArchConfig``, copied). It counts the q heads padded to the reference's
+16-way model axis (``models.config.TP``) as spent FLOPs, as the reference
+does: the port's models compute them (``models.model``).
 
 Conventions: matmul (m,k)x(k,n) = 2mkn FLOPs. Train = fwd + 2x bwd + 1x
 remat re-fwd = 4x fwd matmul FLOPs. Padded q-heads and MoE capacity slots
@@ -26,7 +24,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..models.config import ArchConfig
+from ..models.config import TP, ArchConfig
 from ..models.model import padded_vocab
 
 
@@ -60,9 +58,8 @@ class CostBreakdown:
     breakdown: dict
 
 
-def _attn_layer_flops(cfg: ArchConfig, tokens: int, s_kv: int, tp: int) -> float:
-    hp = cfg.padded_heads(tp)
-    kvp = hp if cfg.n_kv_heads == cfg.n_heads else cfg.n_kv_heads
+def _attn_layer_flops(cfg: ArchConfig, tokens: int, s_kv: int) -> float:
+    hp, kvp = cfg.padded_heads(TP), cfg.padded_kv_heads(TP)
     hd, d = cfg.head_dim, cfg.d_model
     proj = 2 * tokens * d * (hp * hd) * 2  # wq + wo
     proj += 2 * tokens * d * (kvp * hd) * 2  # wk + wv
@@ -107,7 +104,7 @@ def _moe_layer_flops(cfg: ArchConfig, tokens: int, seq: int) -> float:
 
 
 def forward_flops(cfg: ArchConfig, batch: int, seq: int, *, s_kv: int | None = None,
-                  decode: bool = False, tp: int = 1) -> CostBreakdown:
+                  decode: bool = False) -> CostBreakdown:
     """One forward pass over batch x seq tokens (decode: seq=1, s_kv=cache)."""
     tokens = batch * seq
     s_kv = s_kv or seq
@@ -116,7 +113,7 @@ def forward_flops(cfg: ArchConfig, batch: int, seq: int, *, s_kv: int | None = N
     attn = mamba = mlp = moe = 0.0
     for i in range(cfg.n_layers):
         if cfg.mixer_kind(i) == "attn":
-            attn += _attn_layer_flops(cfg, tokens, s_kv, tp)
+            attn += _attn_layer_flops(cfg, tokens, s_kv)
         else:
             if decode:
                 # recurrent step: state update + conv + projections
@@ -141,11 +138,11 @@ def param_bytes(cfg: ArchConfig, dtype_bytes: int = 2) -> float:
 
 
 def step_costs(cfg: ArchConfig, shape_kind: str, batch: int, seq: int, chips: int,
-               *, s_kv: int | None = None, tp: int = 1) -> dict:
+               *, s_kv: int | None = None) -> dict:
     """Per-device FLOPs and HBM bytes for one step of the given kind."""
     decode = shape_kind == "decode"
     fb = forward_flops(cfg, batch, 1 if decode else seq,
-                       s_kv=s_kv or seq, decode=decode, tp=tp)
+                       s_kv=s_kv or seq, decode=decode)
     if shape_kind == "train":
         total_flops = 4.0 * fb.flops_fwd  # fwd + re-fwd(remat) + 2x bwd
     else:
@@ -166,9 +163,7 @@ def step_costs(cfg: ArchConfig, shape_kind: str, batch: int, seq: int, chips: in
         kv = 0
         for i in range(cfg.n_layers):
             if cfg.mixer_kind(i) == "attn":
-                kvp = (cfg.padded_heads(tp) if cfg.n_kv_heads == cfg.n_heads
-                       else cfg.n_kv_heads)
-                kv += 2 * batch * (s_kv or seq) * kvp * cfg.head_dim * 2
+                kv += 2 * batch * (s_kv or seq) * cfg.padded_kv_heads(TP) * cfg.head_dim * 2
             else:
                 kv += batch * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
         traffic = p_bytes + kv

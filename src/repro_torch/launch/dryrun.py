@@ -3,8 +3,8 @@
 The port of ``repro.launch.dryrun``. For each cell it sizes one rank's
 state from the specs under the production mesh's ``MeshShape`` (params,
 optimizer state, decode cache and batch: ``local_shape`` of each spec),
-takes the FLOPs and HBM bytes from ``cost_model.step_costs(tp=16)``
-(the production meshes' model axis), cross-checks the analytic FLOPs on a
+takes the FLOPs and HBM bytes from ``cost_model.step_costs`` (the
+reference's padded heads, which the port's models compute), cross-checks the analytic FLOPs on a
 small configuration of the arch with ``flop_count`` on the meta device, and
 gives a ``Roofline`` row on the H100's peaks. Nothing touches a card and
 nothing is allocated.
@@ -41,9 +41,6 @@ from .mesh import production_mesh_shape
 from .roofline import Roofline
 from .specs import SHAPES, batch_specs, cell_supported, input_specs
 
-#: the production meshes' model-axis width, at which the analytic model
-#: counts the reference's padded heads.
-TP = 16
 COLL_NOTE = "not measured: no process group"
 #: the small configuration of the FLOP cross-check: one period of the arch's
 #: smoke config, remat off, B x S tokens (tests/test_roofline.py's).
@@ -87,9 +84,8 @@ def state_bytes(args: tuple, kind: str) -> dict[str, int]:
 
 def flop_check(cfg) -> dict:
     """``flop_count`` of one forward of a small configuration of ``cfg`` on
-    the meta device against ``cost_model.forward_flops`` at tp = 1 (the
-    unpadded heads the port runs), without the logits (the forward ends at
-    the final norm)."""
+    the meta device against ``cost_model.forward_flops``, without the
+    logits (the forward ends at the final norm)."""
     from ..models import LM
 
     small = dataclasses.replace(smoke(cfg), n_layers=smoke(cfg).layer_period, remat=False,
@@ -139,7 +135,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         s_kv = (kv_len or info["seq"]) if info["kind"] == "decode" else None
         ana = cost_model.step_costs(
             cfg, info["kind"], info["batch"], 1 if info["kind"] == "decode" else info["seq"],
-            chips, s_kv=s_kv, tp=TP)
+            chips, s_kv=s_kv)
         check = flop_check(cfg)
         roof = Roofline(
             arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from ..models import LM, cache_specs, param_specs
-from ..models.config import ArchConfig
+from ..models.config import TP, ArchConfig
 from ..models.model import model_dtype
 from ..optim import OptConfig, opt_state_specs
 from ..serving.engine import prefill_logits
@@ -199,7 +199,7 @@ def cache_sds(cfg: ArchConfig, b: int, s: int, ctx: MeshCtx) -> list[dict[str, t
     out = []
     for i, spec in enumerate(specs):
         if cfg.mixer_kind(i) == "attn":
-            shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+            shape = (b, s, cfg.padded_kv_heads(TP), cfg.head_dim)
             layer = {"k": (shape, dtype), "v": (shape, dtype)}
         else:
             layer = {"conv": ((b, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state), dtype),

@@ -21,7 +21,10 @@ sampling. ``rls_scores_one_rung``, ``bless_topm_landmarks``,
 are the reference's functions, batched over any leading axes (every
 (batch, kv head) at once: batched Cholesky, triangular solve, sort and
 gather) where the reference vmaps. None of them is a Pallas kernel in the
-reference, so they are plain PyTorch on both devices. The top M is taken
+reference, so they are plain PyTorch on both devices; under a serving
+mesh ``bless_compress_cache`` takes and gives the rank's blocks of a cache
+split over the sequence (the reference's runs on a global array, whatever
+its sharding). The top M is taken
 by a stable descending sort, so tied scores (at the [1e-12, 1] clip) go to
 the lower index first, as ``jax.lax.top_k`` orders them.
 
@@ -37,6 +40,7 @@ import torch
 
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ref import NEG
+from ..sharding import collectives
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -194,8 +198,29 @@ def bless_compress_cache(k_cache: torch.Tensor, v_cache: torch.Tensor, m: int, *
                          m_pilot: int = 256, lam: float = 1e-4) -> tuple[torch.Tensor, torch.Tensor]:
     """Leverage-score KV-cache compression: the top-m RLS keys of each
     (batch, kv head) and their values. caches (B, S, Hkv, D) -> (B, m, Hkv, D),
-    in the caches' dtype, in score order."""
+    in the caches' dtype, in score order.
+
+    Under a serving mesh (``sharding.serve_ctx``) the caches are the rank's
+    ``cache_specs`` blocks, the sequence split over ``model`` or ``data`` x
+    ``model``, and so is the result, at length ``m``: the sequence is
+    gathered over its ranks in one collective, every rank compresses the
+    whole of its rows' caches (the unsharded call's work on the same
+    values) and keeps its block of the m rows. ``m`` must divide over the
+    sequence's ranks."""
+    plan = collectives.active()
+    ways = plan.kv_ways if plan is not None else 1
+    if m % ways:
+        raise ValueError(f"m = {m} compressed rows do not split over the cache sequence's "
+                         f"{ways} ranks")
+    if ways > 1:
+        d = k_cache.shape[-1]
+        both = collectives.gather_kv_seq(torch.cat([k_cache, v_cache], dim=-1))
+        k_cache, v_cache = both[..., :d].contiguous(), both[..., d:].contiguous()
     kt = k_cache.permute(0, 2, 1, 3)  # (B, Hkv, S, D)
     vt = v_cache.permute(0, 2, 1, 3)
     idx = bless_topm_landmarks(kt, m, m_pilot=m_pilot, lam=lam)  # (B, Hkv, m)
-    return _rows(kt, idx).permute(0, 2, 1, 3), _rows(vt, idx).permute(0, 2, 1, 3)
+    kc, vc = _rows(kt, idx).permute(0, 2, 1, 3), _rows(vt, idx).permute(0, 2, 1, 3)
+    if ways > 1:
+        lo, per = plan.kv_index * (m // ways), m // ways
+        kc, vc = kc[:, lo:lo + per], vc[:, lo:lo + per]
+    return kc, vc

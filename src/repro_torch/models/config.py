@@ -1,10 +1,11 @@
 """Architecture configuration: a copy of the reference's ``repro.models.config``.
 
 The port keeps its own copy (the reference module imports no JAX, but the
-port imports nothing of the reference). ``padded_heads``, ``moe_mode`` and
-``moe_ep`` describe the reference's 16-way tensor-parallel layout; the port
-runs on one card and uses ``n_heads`` / ``n_kv_heads`` as given, so they are
-kept only for carrying weights across (``repro_torch.interop``).
+port imports nothing of the reference). ``TP`` is the reference's
+production model-axis width (its ``repro.models.model.TP``), kept here once:
+``padded_heads(TP)`` and ``padded_kv_heads(TP)`` give the attention heads
+every model is built with, on one card and on any mesh (the reference's
+layout, ROADMAP C.2c), and ``moe_mode(TP)`` a MoE layer's layout.
 
 One frozen dataclass describes every assigned arch (dense / MoE / SSM /
 hybrid / VLM-backbone / audio-encoder). ``block_kind(i)`` resolves the
@@ -17,6 +18,10 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Literal
+
+#: the reference's production model-axis width: attention q heads are padded
+#: to a multiple of it and MoE layouts are chosen by it.
+TP = 16
 
 Mixer = Literal["attn", "mamba"]
 Mlp = Literal["dense", "moe", "none"]
@@ -128,6 +133,12 @@ class ArchConfig:
         """q-heads padded to a multiple of the model axis (zero o_proj rows —
         exact; the overhead is reported in the roofline waste ratio)."""
         return math.ceil(self.n_heads / tp) * tp
+
+    def padded_kv_heads(self, tp: int = 16) -> int:
+        """kv heads beside ``padded_heads(tp)`` q heads: padded with them
+        under MHA (``n_kv_heads == n_heads``), else ``n_kv_heads``. q head h
+        reads kv head ``h // (padded_heads // padded_kv_heads)``."""
+        return self.padded_heads(tp) if self.n_kv_heads == self.n_heads else self.n_kv_heads
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks), for 6ND roofline."""

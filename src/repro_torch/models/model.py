@@ -8,9 +8,15 @@ period position's parameters over groups and scans them, the port keeps a
 flat ``layers`` list: layer ``g * period + j`` is the reference's
 ``blocks/blk{j}`` at group ``g`` (``repro_torch.interop`` unstacks them).
 
-The reference pads q heads to a multiple of its 16-way model axis and
-masks the padded heads before ``wo`` (exact, shard-friendly); that is a
-sharding artefact, and the port uses ``n_heads`` and ``n_kv_heads`` as given.
+Attention has the reference's head layout on one card and on every mesh:
+q heads padded to a multiple of its 16-way model axis
+(``cfg.padded_heads(TP)``; under MHA the kv heads with them), the padded
+heads multiplied by 0 before ``wo``, q head h reading kv head
+``h // (padded q heads // kv heads)``. Where the padding changes that
+grouping (granite-moe-3b-a800m's 24 / 8 heads, llama4-scout-17b-a16e's
+40 / 8, qwen2-vl-2b's 12 / 2) this is the reference's regrouped model, not
+the published one: the port keeps it for parity (ROADMAP C.2c). Every
+``model`` axis that divides 16 splits the padded heads evenly.
 ``param_specs`` and ``cache_specs`` give the reference's partition specs by
 the same leaf-name rules, keyed as ``LM.state_dict()`` and ``LM.init_cache``
 are (no leading axis for the stacked layers: the port's are not stacked).
@@ -25,10 +31,10 @@ Under a ``DeviceMesh`` of more than one rank (``sharding.activate_mesh``)
 the forward and ``loss_fn`` run sharded, each tensor the rank's block
 (``sharding.collectives``): the batch rows over ``data``, every leaf
 stored as its ``param_specs`` block and gathered over ``data`` where it is
-used (FSDP), attention and Mamba-2 heads, MLP columns and the vocabulary
-split over ``model`` (tensor parallelism; ``logits`` gives the rank's
-vocabulary block), MoE layers in the reference's layout
-(``cfg.moe_mode(SPEC_TP)``: experts or each expert's ff columns over
+used (FSDP), attention's padded q heads and Mamba-2 heads, MLP columns and
+the vocabulary split over ``model`` (tensor parallelism; ``logits`` gives
+the rank's vocabulary block), MoE layers in the reference's layout
+(``cfg.moe_mode(TP)``: experts or each expert's ff columns over
 ``model``, or replicated). Decode runs under ``rules.serve_ctx``'s layouts:
 the cache as ``cache_specs``' blocks (attention's sequence over ``model``,
 or over every rank for one sequence; Mamba-2's channels and heads over
@@ -54,7 +60,7 @@ from ..sharding.rules import (MeshCtx, PartitionSpec, local_shape, logical_to_sp
 from . import layers
 from .attention import (attention, decode_attention, decode_attention_partial,
                         nystrom_attention)
-from .config import ArchConfig
+from .config import TP, ArchConfig
 from .layers import (MLP, apply_mrope, apply_rope, lowp, ninit, param, rms_norm,
                      sinusoidal_pos)
 from .mamba2 import Mamba
@@ -69,60 +75,81 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def head_share(cfg: ArchConfig, ways: int, rank: int) -> tuple[int, int, int, int]:
+    """(q_lo, q_hi, kv_lo, kv_hi) of ``model`` rank ``rank`` of ``ways``:
+    its contiguous share [q_lo, q_hi) of the padded q heads and the kv
+    heads [kv_lo, kv_hi) they read (q head h reads kv head
+    ``h // (padded q heads // padded kv heads)``), each of those kv heads
+    serving an equal run of the share, as the attention kernels group
+    heads. Raises NotImplementedError where the padded q heads do not divide
+    over ``ways`` or a share straddles kv heads unevenly; neither happens
+    for a configuration of the repo on an axis that divides 16."""
+    hp, kvp = cfg.padded_heads(TP), cfg.padded_kv_heads(TP)
+    hq, group = hp // ways, hp // kvp
+    q_lo = rank * hq
+    kv_lo, kv_hi = q_lo // group, (q_lo + hq - 1) // group + 1
+    if hp % ways or (hq % group and group % hq):
+        raise NotImplementedError(f"{hp} padded q heads over {kvp} kv heads do not split "
+                                  f"evenly over a model axis of {ways}")
+    return q_lo, q_lo + hq, kv_lo, kv_hi
+
+
 class Attention(nn.Module):
     """q/k/v projections, optional qk-norm, rotary positions, exact attention
     (K8 on the card) or, with ``attention_impl="bless_nystrom"`` past
     ``nystrom_landmarks`` positions, BLESS-Nystrom attention, output
-    projection. Decode keeps its full cache, as the reference's does."""
+    projection. Decode keeps its full cache, as the reference's does.
+
+    The reference's head layout: ``hp = cfg.padded_heads(TP)`` q heads and
+    ``cfg.padded_kv_heads(TP)`` kv heads, q head h reading kv head
+    ``h // (hp // kv heads)``; the padded q heads (h >= ``n_heads``) are
+    multiplied by 0 before ``wo``."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator, dtype: torch.dtype,
                  device):
         super().__init__()
         self.cfg = cfg
         d, hd = cfg.d_model, cfg.head_dim
+        hp, kvp = cfg.padded_heads(TP), cfg.padded_kv_heads(TP)
         kw = dict(generator=generator, dtype=dtype, device=device)
-        self.wq = param(ninit((d, cfg.n_heads * hd), **kw))
-        self.wk = param(ninit((d, cfg.n_kv_heads * hd), **kw))
-        self.wv = param(ninit((d, cfg.n_kv_heads * hd), **kw))
-        self.wo = param(ninit((cfg.n_heads * hd, d), **kw))
+        self.wq = param(ninit((d, hp * hd), **kw))
+        self.wk = param(ninit((d, kvp * hd), **kw))
+        self.wv = param(ninit((d, kvp * hd), **kw))
+        self.wo = param(ninit((hp * hd, d), **kw))
         if cfg.qk_norm:
             self.q_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
             self.k_norm = param(torch.zeros((hd,), dtype=dtype, device=device))
 
     def _weights(self) -> tuple:
-        """(wq, wk, wv, wo, q_norm, k_norm, q heads, kv heads) this rank
-        computes with: the stored leaves outside a sharded run; on a mesh
-        its share of the q heads (``model``) and the kv heads they read,
-        gathered over ``model`` too where those do not line up with its
-        block (fewer kv heads than ``model`` ranks: gemma-2b)."""
+        """(wq, wk, wv, wo, q_norm, k_norm, q heads [lo, hi), kv heads) this
+        rank computes with: the stored leaves outside a sharded run; on a
+        mesh its share of the padded q heads (``model``) and the kv heads
+        they read, gathered over ``model`` too where those do not line up
+        with its block (fewer kv heads than ``model`` ranks: gemma-2b,
+        qwen2-vl)."""
         cfg = self.cfg
         norms = (self.q_norm, self.k_norm) if cfg.qk_norm else (None, None)
         if tp.active() is None:
-            return (self.wq, self.wk, self.wv, self.wo, *norms, cfg.n_heads, cfg.n_kv_heads)
-        q_lo, q_hi = tp.model_part(cfg.n_heads, "q heads")
-        hq, hkv, group = q_hi - q_lo, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-        if hkv % tp.model_axis().size == 0:
+            q_lo, q_hi, _, kv = head_share(cfg, 1, 0)
+            return (self.wq, self.wk, self.wv, self.wo, *norms, q_lo, q_hi, kv)
+        ways = tp.model_axis().size
+        q_lo, q_hi, kv_lo, kv_hi = head_share(cfg, ways, tp.model_axis().rank)
+        if cfg.padded_kv_heads(TP) % ways == 0:  # the rank's kv block is what its q heads read
             wk, wv = tp.weight(self, "wk"), tp.weight(self, "wv")
-            kv = hkv // tp.model_axis().size
         else:
-            kv_lo, kv_hi = q_lo // group, (q_hi - 1) // group + 1
-            kv = kv_hi - kv_lo
-            if hq % kv or any((q_lo + i) // group - kv_lo != i // (hq // kv) for i in range(hq)):
-                raise NotImplementedError(
-                    f"q heads {q_lo}-{q_hi} do not group evenly over kv heads {kv_lo}-{kv_hi} "
-                    "(ROADMAP A)")
             cols = slice(kv_lo * cfg.head_dim, kv_hi * cfg.head_dim)
             wk = tp.weight(self, "wk", gather_model=True)[:, cols]
             wv = tp.weight(self, "wv", gather_model=True)[:, cols]
         norms = tuple(n if n is None else tp.copy_to_model(n) for n in norms)
-        return (tp.weight(self, "wq"), wk, wv, tp.weight(self, "wo"), *norms, hq, kv)
+        return (tp.weight(self, "wq"), wk, wv, tp.weight(self, "wo"), *norms, q_lo, q_hi,
+                kv_hi - kv_lo)
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor | None,
              mrope_pos: torch.Tensor | None, w: tuple | None = None):
         cfg = self.cfg
         b, s, _ = x.shape
-        wq, wk, wv, _, q_norm, k_norm, hq, hkv = self._weights() if w is None else w
-        q = lowp(x @ wq).reshape(b, s, hq, cfg.head_dim)
+        wq, wk, wv, _, q_norm, k_norm, q_lo, q_hi, hkv = self._weights() if w is None else w
+        q = lowp(x @ wq).reshape(b, s, q_hi - q_lo, cfg.head_dim)
         k = lowp(x @ wk).reshape(b, s, hkv, cfg.head_dim)
         v = lowp(x @ wv).reshape(b, s, hkv, cfg.head_dim)
         return self._positions(q, k, v, positions, mrope_pos, q_norm, k_norm)
@@ -141,18 +168,29 @@ class Attention(nn.Module):
             k = apply_mrope(k, mrope_pos, cfg.rope_theta, cfg.mrope_sections)
         return q, k, v
 
+    def _masked(self, out: torch.Tensor, q_lo: int, q_hi: int) -> torch.Tensor:
+        """``out`` (..., h, D) of q heads [q_lo, q_hi) with the padded ones
+        (h >= ``n_heads``) multiplied by 0, as the reference masks them."""
+        n = self.cfg.n_heads
+        if q_hi <= n:  # every head real: the reference's factor is 1
+            return out
+        keep = (torch.arange(q_lo, q_hi, device=out.device) < n).to(out.dtype)
+        return out * keep[:, None]
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mrope_pos: torch.Tensor | None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         w = self._weights()
+        q_lo, q_hi = w[6], w[7]
         q, k, v = self._qkv(tp.copy_to_model(x), positions, mrope_pos, w)
         if cfg.attention_impl == "bless_nystrom" and s > cfg.nystrom_landmarks:
             out = nystrom_attention(q, k, v, landmarks=cfg.nystrom_landmarks)
         else:
             out = attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk,
                             softcap=cfg.attn_logit_softcap)
-        return tp.reduce_from_model(out.reshape(b, s, w[6] * cfg.head_dim) @ w[3])
+        out = self._masked(out, q_lo, q_hi)
+        return tp.reduce_from_model(out.reshape(b, s, (q_hi - q_lo) * cfg.head_dim) @ w[3])
 
     def decode(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                length: torch.Tensor | None, mrope_pos: torch.Tensor | None) -> torch.Tensor:
@@ -169,7 +207,8 @@ class Attention(nn.Module):
         cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
         out = decode_attention(q, cache["k"], cache["v"], softcap=cfg.attn_logit_softcap,
                                length=length)
-        return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ self.wo
+        hp = q.shape[2]
+        return self._masked(out, 0, hp).reshape(b, 1, hp * cfg.head_dim) @ self.wo
 
     def _decode_sharded(self, x: torch.Tensor, cache: dict, pos: torch.Tensor,
                         length: torch.Tensor | None,
@@ -178,21 +217,23 @@ class Attention(nn.Module):
         sequence over ``plan.kv``, the serve layouts' ``model`` or ``data``
         and ``model``). The new token's q, k, v come from the rank's
         columns and are gathered over ``model`` in one collective (every
-        rank then has every head; gemma-2b's one kv head is split within
-        its columns); the rank
+        rank then has every padded head; gemma-2b's one kv head is split
+        within its columns); the rank
         whose block holds ``pos % max_len`` writes the k / v row; each rank
         attends over its block, by global position for ``length``; the
         partials merge across the sequence's ranks for this rank's q heads,
-        which meet its ``wo`` rows in a partial summed over ``model``."""
+        which, the padded ones masked, meet its ``wo`` rows in a partial
+        summed over ``model``."""
         cfg = self.cfg
         plan = tp.active()
         b, hd = x.shape[0], cfg.head_dim
-        q_lo, q_hi = tp.model_part(cfg.n_heads, "q heads")
+        hp, kvp = cfg.padded_heads(TP), cfg.padded_kv_heads(TP)
+        q_lo, q_hi = head_share(cfg, tp.model_axis().size, tp.model_axis().rank)[:2]
         h = x[:, 0]
         q, k, v = (blk.reshape(b, -1)[:, :heads * hd].reshape(b, 1, heads, hd)
                    for blk, heads in zip(tp.model_blocks(*(h @ tp.weight(self, w)
                                                             for w in ("wq", "wk", "wv"))),
-                                         (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)))
+                                         (hp, kvp, kvp)))
         norms = (self.q_norm, self.k_norm) if cfg.qk_norm else (None, None)
         q, k, v = self._positions(q, k, v, pos.reshape(b, 1), mrope_pos, *norms)
         rows = cache["k"].shape[1]
@@ -206,7 +247,8 @@ class Attention(nn.Module):
         acc, mx, den = decode_attention_partial(q, cache["k"], cache["v"],
                                                 softcap=cfg.attn_logit_softcap, length=length,
                                                 offset=lo)
-        out = tp.merge_attention(acc, mx, den, slice(q_lo, q_hi), q.dtype)
+        out = self._masked(tp.merge_attention(acc, mx, den, slice(q_lo, q_hi), q.dtype),
+                           q_lo, q_hi)
         return tp.reduce_from_model(out.reshape(b, 1, (q_hi - q_lo) * hd)
                                     @ tp.weight(self, "wo"))
 
@@ -231,7 +273,7 @@ class Block(nn.Module):
         if self.mlp_kind == "moe":
             self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.mlp_act,
                            capacity_factor=cfg.capacity_factor, shared_ff=cfg.shared_expert_ff,
-                           mode=cfg.moe_mode(SPEC_TP), **kw)
+                           mode=cfg.moe_mode(TP), **kw)
         elif self.mlp_kind == "dense":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, **kw)
 
@@ -389,7 +431,7 @@ class LM(nn.Module):
         cache = []
         for i, layer in enumerate(self.layers):
             if layer.mixer_kind == "attn":
-                kv = (batch_size, max_len, cfg.n_kv_heads, cfg.head_dim)
+                kv = (batch_size, max_len, cfg.padded_kv_heads(TP), cfg.head_dim)
                 shapes = {"k": (kv, dtype), "v": (kv, dtype)}
             else:
                 shapes = {"conv": ((batch_size, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
@@ -432,10 +474,6 @@ class LM(nn.Module):
 # =============================================================================
 # sharding specs (leaf-name rules)
 # =============================================================================
-
-#: the model-axis width of the production meshes (``launch.mesh``), which
-#: picks a MoE layer's layout as the reference's ``TP`` does.
-SPEC_TP = 16
 
 _SPEC_RULES: dict[str, tuple[str | None, ...]] = {
     # attention
@@ -487,7 +525,7 @@ def init_blocks(cfg: ArchConfig, specs: dict[str, PartitionSpec], mesh, *, seed:
 
 
 def _moe_spec(cfg: ArchConfig, name: str) -> tuple[str | None, ...]:
-    mode = cfg.moe_mode(SPEC_TP)
+    mode = cfg.moe_mode(TP)
     if name in ("w_gate", "w_up"):
         return {"ep": ("model", "fsdp", None), "tp": (None, "fsdp", "model"),
                 "replicate": (None, "fsdp", None)}[mode]

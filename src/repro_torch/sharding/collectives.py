@@ -29,8 +29,9 @@ of axes (``data``, ``model``) (and ``pod``, pure data parallelism):
   one collective, ``merge_attention`` merges each rank's
   attention over its block of the cache's sequence by log-sum-exp in the
   blocks' order, ``argmax_over_model`` takes the greedy token of a
-  vocabulary split over ``model`` (ties to the lower index), and
-  ``gather_batch`` gathers the sampled tokens over the batch axes;
+  vocabulary split over ``model`` (ties to the lower index),
+  ``gather_batch`` gathers the sampled tokens over the batch axes and
+  ``gather_kv_seq`` a cache's sequence over its axes (BLESS compression);
 - ``finish_grads`` sums each gradient over the batch axes it is not
   already reduced over (replicated leaves over ``data``, every leaf over
   ``pod``), and ``global_norm`` counts each element of the sharded
@@ -302,16 +303,17 @@ def weight(module: torch.nn.Module, name: str, *, gather_model: bool = False) ->
 
 
 def model_part(n: int, what: str) -> tuple[int, int]:
-    """[lo, hi) of the ``n`` units (heads) this rank computes: the
+    """[lo, hi) of the ``n`` units (Mamba-2 heads) this rank computes: the
     ``model`` rank's contiguous share; ``(0, n)`` outside a sharded run.
     Raises NotImplementedError when ``n`` does not divide over ``model``
-    (the reference pads heads there, ROADMAP A)."""
+    (the reference's partitioner splits them unevenly; every configuration
+    of the repo divides over each axis that divides 16). Attention's padded
+    q heads go by ``models.model.head_share``."""
     plan = active()
     m = plan.model if plan is not None else _NONE
     if n % m.size:
         raise NotImplementedError(
-            f"{n} {what} over a model axis of {m.size}: the reference pads them to a multiple "
-            "of the axis; the port runs the unpadded model (ROADMAP A)")
+            f"{n} {what} over a model axis of {m.size}: the port splits them only evenly")
     per = n // m.size
     return m.rank * per, (m.rank + 1) * per
 
@@ -468,6 +470,20 @@ def argmax_over_model(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor
     pairs = _all_gather(torch.stack([values.double(), index.double()])[None], ax, 0)
     best = torch.argmax(pairs[:, 0], dim=0)  # (rows,): the first rank holding the max
     return torch.gather(pairs[:, 1], 0, best[None])[0].long()
+
+
+def gather_kv_seq(x: torch.Tensor) -> torch.Tensor:
+    """A decode cache's blocks (B, S, ...) of every rank of its sequence
+    axes (``rules.serve_ctx``'s ``model``, or ``data`` x ``model``)
+    concatenated along S in the sequence's order (``x`` holds this rank's
+    block), contiguous: the whole sequence on every rank."""
+    plan = active()
+    if plan is None:
+        return x
+    for ax in reversed(plan.kv):  # the faster axes gathered first
+        if ax.size > 1:
+            x = _all_gather(x, ax, 1)
+    return x.contiguous()
 
 
 def gather_batch(x: torch.Tensor) -> torch.Tensor:

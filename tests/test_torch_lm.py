@@ -34,11 +34,12 @@ from repro.models import layers as jlayers
 from repro.models import mamba2 as jmamba
 from repro.models import moe as jmoe
 from repro.serving import engine as jengine
-from repro_torch import configs, interop, kernels
+from repro_torch import configs, kernels
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels import flash_attention_ops as fa
 from repro_torch.kernels import ssd_ops as so
 from repro_torch.models import LM, layers
+from repro_torch.models.config import TP
 from repro_torch.models import attention as tattn
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import moe as tmoe
@@ -377,11 +378,6 @@ def _tokens(cfg, b, s, seed=1):
     return _rng(seed).integers(0, cfg.vocab_size, (b, s))
 
 
-#: smoke head counts that keep a configuration's grouping under the reference's
-#: padding: qwen2-vl's smoke 4 q over 2 kv heads would regroup (padded to 16).
-SMOKE_HEADS = {"qwen2-vl-2b": dict(n_heads=16)}
-
-
 def _batch(cfg, b, s, seed=1):
     """The reference test's batch (tests/test_models.py), from numpy: tokens or
     frames, and the vision model's M-RoPE positions and patch embeddings."""
@@ -404,7 +400,7 @@ def _batch(cfg, b, s, seed=1):
                                           ("qwen3-32b", None), ("hubert-xlarge", None),
                                           ("qwen2-vl-2b", None)])
 def test_smoke_forward_and_prefill_logits_match_reference(name, layers_):
-    jcfg, params, tcfg, lm = _carried(name, layers_, **SMOKE_HEADS.get(name, {}))
+    jcfg, params, tcfg, lm = _carried(name, layers_)
     bat = _batch(jcfg, 2, 32)
     want = jax.jit(jforward, static_argnums=1)(params, jcfg,
                                                {k: jnp.asarray(v) for k, v in bat.items()})
@@ -417,39 +413,52 @@ def test_smoke_forward_and_prefill_logits_match_reference(name, layers_):
 def test_padded_head_guard_refuses_exactly_the_regrouping_configs():
     # every full configuration against a brute-force head map: the reference
     # replicates each of its kv heads over hq // hkv padded q heads
-    # (attention._repeat_kv), the port each of its over n_heads // n_kv_heads
+    # (attention._repeat_kv); the port builds the same padded heads and its
+    # attention reads kv head h // (hp // kvp) for q head h; nothing is refused
     regrouping = set()
     for name in configs.list_archs():
-        cfg = configs.get_config(name)
-        hp = cfg.padded_heads(16)
-        hkv = hp if cfg.n_kv_heads == cfg.n_heads else cfg.n_kv_heads
-        ref_map = np.repeat(np.arange(hkv), hp // hkv)[:cfg.n_heads]
-        port_map = np.repeat(np.arange(cfg.n_kv_heads), cfg.n_heads // cfg.n_kv_heads)
-        same = np.array_equal(ref_map, port_map)
-        assert interop.regroups(cfg, hp) is not same, name
-        if not same:
+        cfg, jcfg = configs.get_config(name), jconfigs.get_config(name)
+        hp = jcfg.padded_heads(16)
+        hkv = hp if jcfg.n_kv_heads == jcfg.n_heads else jcfg.n_kv_heads
+        ref_map = np.repeat(np.arange(hkv), hp // hkv)
+        assert (cfg.padded_heads(TP), cfg.padded_kv_heads(TP)) == (hp, hkv), name
+        port_map = np.arange(hp) // (hp // cfg.padded_kv_heads(TP))
+        np.testing.assert_array_equal(port_map, ref_map, err_msg=name)
+        lm = LM(cfg, device="meta")
+        for attn in (b.attn for b in lm.layers if b.mixer_kind == "attn"):  # none in mamba2
+            assert attn.wq.shape[1] == attn.wo.shape[0] == hp * cfg.head_dim, name
+            assert attn.wk.shape[1] == attn.wv.shape[1] == hkv * cfg.head_dim, name
+        published = np.repeat(np.arange(cfg.n_kv_heads), cfg.n_heads // cfg.n_kv_heads)
+        if not np.array_equal(ref_map[:cfg.n_heads], published):
             regrouping.add(name)
-            with pytest.raises(ValueError, match="regroups"):
-                lm_params_from_numpy(cfg, {})
+    # the configurations whose padded grouping is not the published one: kept for parity
     assert regrouping == {"granite-moe-3b-a800m", "llama4-scout-17b-a16e", "qwen2-vl-2b"}
     gemma = configs.get_config("gemma-2b")
     assert gemma.n_kv_heads == 1 and gemma.padded_heads(16) != gemma.n_heads
 
 
 def test_interop_unstacks_groups_and_strips_padded_heads():
+    # the padded leaves come across one to one (the port builds them too)
     jcfg, params, tcfg, lm = _carried("jamba-v0.1-52b", 16)
     sd = lm.state_dict()
     assert tcfg.padded_heads(16) == 16 and tcfg.n_heads == 4  # the smoke model is padded
     attn = params["blocks"]["blk4"]["attn"]
     assert attn["wq"].shape == (2, 128, 16 * 32)
     for g in range(2):
-        wq = sd[f"layers.{8 * g + 4}.attn.wq"]
-        assert wq.shape == (128, 4 * 32)
-        np.testing.assert_array_equal(wq.numpy(), np.asarray(attn["wq"][g])[:, :128])
-        np.testing.assert_array_equal(sd[f"layers.{8 * g + 4}.attn.wo"].numpy(),
-                                      np.asarray(attn["wo"][g])[:128])
-    with pytest.raises(ValueError, match="regroups"):
-        lm_params_from_numpy(configs.get_config("granite-moe-3b-a800m"), {})
+        for leaf in ("wq", "wk", "wv", "wo"):
+            got = sd[f"layers.{8 * g + 4}.attn.{leaf}"]
+            assert got.shape == attn[leaf].shape[1:]
+            np.testing.assert_array_equal(got.numpy(), np.asarray(attn[leaf][g]))
+    # a regrouping configuration carries across too, at its padded shapes
+    granite = dataclasses.replace(configs.smoke(configs.get_config("granite-moe-3b-a800m")),
+                                  n_heads=24, n_kv_heads=8, head_dim=16)
+    jgranite = dataclasses.replace(jconfigs.smoke(jconfigs.get_config("granite-moe-3b-a800m")),
+                                   n_heads=24, n_kv_heads=8, head_dim=16)
+    gsd = lm_params_from_numpy(granite, jax.tree.map(
+        np.asarray, init_params(jgranite, jax.random.PRNGKey(0))))
+    LM(granite, device="cpu").load_state_dict(gsd, strict=True)
+    assert gsd["layers.0.attn.wq"].shape == (128, 32 * 16)
+    assert gsd["layers.0.attn.wk"].shape == (128, 8 * 16)
     # dtypes are kept (bf16 arrays of the reference come across as bf16)
     bf = init_params(jconfigs.smoke(jconfigs.get_config("phi3-mini-3.8b")),
                      jax.random.PRNGKey(0))
@@ -576,7 +585,8 @@ def test_chip_smoke_lm_phases_rehearse_on_the_cpu():
     srv = chip_smoke.serve("cpu", cfg, batch=2, prompt=48, repeats=1, max_len=64,
                            serve_prompt=5, steps=6, join_at=2)
     assert srv["output_lengths"] == [7, 7, 7, 5] and srv["logits_finite"]
-    assert srv["kernels"]["flash_attention"]["shape"] == [2, 4, 4, 48, 32]
+    # the shape the prefill gives K8: the smoke's 4 / 4 heads padded to 16 / 16
+    assert srv["kernels"]["flash_attention"]["shape"] == [2, 16, 16, 48, 32]
     assert srv["kernels"]["flash_attention"]["design"] == "mma.sync bf16"
     assert srv["kernels"]["ssd"]["shape"] == [2, 48, 8, 32, 16]
     assert srv["kernels"]["ssd"]["library_ms"] is None

@@ -561,11 +561,15 @@ def test_chip_smoke_phase_15_and_the_wide_kernel_times_rehearse_on_the_cpu():
     import chip_smoke
 
     wide = chip_smoke.wide_kernel_times("cpu", attn_shape=(1, 4, 1, 70, 256),
-                                        ssd_shape=(1, 70, 3, 16, 32), timed=False)
+                                        ssd_shape=(1, 70, 3, 16, 32),
+                                        published_shape=(1, 2, 1, 70, 256), timed=False)
     assert set(wide) == {"flash_attention@gemma", "flash_attention@gemma@fp32", "ssd@mamba",
-                         "ssd@mamba@fp32"}
+                         "ssd@mamba@fp32", "flash_attention@gemma-published"}
     assert wide["flash_attention@gemma"]["dtype"] == "bfloat16"
-    assert chip_smoke.GEMMA_ATTN == (2, 8, 1, 2048, 256)
+    assert wide["flash_attention@gemma-published"]["shape"] == [1, 2, 1, 70, 256]
+    # gemma-2b's 8 q heads padded to 16 over its one kv head, as phase 15 runs it
+    assert chip_smoke.GEMMA_ATTN == (2, 16, 1, 2048, 256)
+    assert chip_smoke.GEMMA_ATTN_PUBLISHED == (2, 8, 1, 2048, 256)
     assert chip_smoke.MAMBA_SSD == (4, 2048, 32, 64, 128)
     assert all(3e-4 <= lr <= 3e-3 for lr in chip_smoke.TRAIN_PEAK_LR.values())
     g = dataclasses.replace(configs.smoke(configs.get_config("gemma-2b")), n_layers=2)
