@@ -3,13 +3,14 @@
 KRR serving, streaming, online, sharded, guarded and fused paths, its Jamba
 serving path, BLESS-Nystrom attention in gemma-2b, LM training (gemma-2b,
 mamba2-370m), the training launcher, GPipe, the LM sharded across ranks,
-MoE across the model axis, decode under a serving mesh and the reference's
-padded attention heads (with BLESS cache compression under a mesh) on one
-H100.
+MoE across the model axis, decode under a serving mesh, the reference's
+padded attention heads (with BLESS cache compression under a mesh) and the
+five examples on one H100 (every multi-rank phase one rank a card on a
+machine of several).
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero without one
     python3 chip_smoke.py --phase serve|nystrom|train|launch|shard|shard_launch|moe_shard
-                         |serve_shard|padded_heads
+                         |serve_shard|padded_heads|examples
                          [--tree DIR]   # one phase alone (of DIR's checkout: an A/B of two
                                         # commits on one card)
 
@@ -132,9 +133,12 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 after (plus its ranks'). (a) falkon_fit through ShardedBackend
                 in a one-rank NCCL group (file:// rendezvous): alpha bit for
                 bit the CudaBackend refit's, which must be phase 5's, with the
-                same K1, K2, K3 launches. (b) two ranks, each its own process
-                on the one card, in a gloo group, 5 * 10^5 rows each (K2, K3,
-                K4 on them): the ranks' alpha and predictions equal bit for
+                same K1, K2, K3 launches. (b) ranks in processes of their own
+                (placed as in every multi-rank phase, below): one a card
+                over NCCL on a machine of several cards (four: 2.5 * 10^5
+                rows each), else two sharing the card over gloo (5 * 10^5
+                rows each); K2, K3, K4 on their rows. The ranks' alpha and
+                predictions equal bit for
                 bit; predictions no farther from phase 12's fp64 referee than
                 phase 5's K2 fit, plus 1e-3; test error within 1e-3 of phase
                 5's; default_backend(n=10^6) in the group is ShardedBackend.
@@ -223,20 +227,21 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 1e-3 of its max|g|.
  16. launch     mamba2-370m at full width and depth (48 layers, bf16, K9 in
                 every layer). (a) `python -m repro_torch.launch.train --steps
-                4 --batch 4 --seq 2048 --ckpt-every 2 --log-every 1` (cut
-                from 8 and 4 for the script's time limit) as a
-                subprocess into D1; again into D2, SIGKILLed once step 2's
+                2 --batch 4 --seq 2048 --ckpt-every 1 --log-every 1` (cut
+                from 8, 4 and 4, 2 for the script's time limit) as a
+                subprocess into D1; again into D2, SIGKILLed once step 1's
                 checkpoint has committed, and relaunched with the same
-                flags. Gates: the relaunch restores at step 2; every
+                flags. Gates: the relaunch restores at step 1; every
                 logged step's loss and grad norm finite; K9 launched twice
                 per layer and step (remat; each launcher resets its counts
-                before a step and logs them); the step-4 checkpoints of D1
+                before a step and logs them); the step-2 checkpoints of D1
                 and D2 the same bits, every tensor of params and optimizer
                 state. Printed: tokens/s, median step, stragglers, save and
                 restore times, and beside them the dry run's per-rank bytes
                 of the cell on a mesh of one rank and the launcher's
-                torch.cuda.max_memory_allocated. (b) GPipe over two gloo
-                ranks sharing the card (subprocesses, file:// rendezvous),
+                torch.cuda.max_memory_allocated. (b) GPipe over two ranks
+                (subprocesses, file:// rendezvous; stage r on card r over
+                NCCL where the machine has two cards, else sharing one),
                 24 / 24 blocks of the model in fp32 built from --seed on
                 each rank, 4 microbatches of (1, 1 024) tokens of
                 SyntheticLM embeddings, loss = sum(out^2). Gates: the output
@@ -248,8 +253,9 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 backward, one (M, 1, 1 024, d) buffer summed); K9 launched
                 in every block of every step on each rank.
  17. shard      the LM sharded across ranks (``sharding.collectives``: FSDP
-                over data, tensor parallelism over model), four ranks
-                sharing the card over gloo. (a) `torchrun --nproc-per-node
+                over data, tensor parallelism over model), four ranks: one a
+                card over NCCL on a machine of four, else sharing the card
+                over gloo. (a) `torchrun --nproc-per-node
                 4 -m repro_torch.launch.train --mesh local` (data = 4) on
                 mamba2-370m at full width and depth, bf16, 2 steps of 4 x
                 2 048 tokens (one row a rank), a checkpoint after each
@@ -276,7 +282,7 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 and K9 launched in every layer on every rank (twice: remat).
  18. moe_shard  MoE across the model axis: one fp32 gradient
                 (loss_and_grads, no optimizer state) on a (data 2, model 2)
-                mesh of four gloo ranks sharing the card, one row of 512
+                mesh of four ranks (one a card or sharing it), one row of 512
                 tokens a data rank, each rank's blocks drawn from --seed
                 leaf by leaf, against the same gradient unsharded on the
                 card once the ranks have exited. jamba-v0.1-52b at full
@@ -284,13 +290,19 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 8 of 16 experts a rank; K9 in both) and granite-moe-3b-a800m
                 cut to 1 layer (tp forced: 256 of each of the 40 experts'
                 512 ff columns a rank, top_k 8; K8 on 16 of its 32 padded q
-                / 4 of 8 kv heads). Gates: loss within 1e-5 relative; every gradient
-                leaf within 1e-4 of its max; each rank's bytes
+                / 4 of 8 kv heads); with one rank a card also
+                llama4-scout-17b-a16e cut to 1 layer (ep: 8 of 16 experts
+                a rank, top_k 1 and a shared expert; 40 q heads padded to
+                48 over 8 kv heads; ~4.3e9 parameters). Gates: loss within
+                1e-5 relative; every gradient leaf within 1e-4 of its max (a
+                leaf 0 in exact arithmetic, the top_k = 1 router's, 0 on both
+                sides within 1e-6 of the model's largest); each rank's bytes
                 shard_step_bytes (no norm); K8 / K9 in every layer on every
                 rank, twice (remat). Printed: peak memory, dropped share.
  19. serve_shard decode under the serving mesh (sharding.serve_ctx), four
-                gloo ranks sharing the card, each rank's blocks drawn from
-                --seed one rank at a time, fp32. The unsharded model runs
+                ranks (one a card over NCCL, each drawing its blocks from
+                --seed at once; or sharing the card over gloo, (a)'s ranks
+                drawing one at a time), fp32. The unsharded model runs
                 first on the card, every decode_step call recorded with its
                 tokens, positions and logits; then the ranks run the same
                 entry points with their own tokens and MoE routing, each
@@ -301,11 +313,11 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 ranks), (data 2, model 2), seq_model, cache 2 048:
                 prefill_logits of 4 x 32 tokens (K8, K9 on every rank);
                 ServeEngine with 4 slots: 2 requests of 32 tokens, a third
-                after 2 steps, 8 steps. (b) gemma-2b at full width and
-                depth, one sequence, seq_shard_wide over all four ranks,
+                after 2 steps, 8 steps. (b) gemma-2b at full width cut to
+                9 of its 18 layers, one sequence, seq_shard_wide over all four ranks,
                 cache 32 768: prefill_logits of 128 tokens (K8), prefill,
-                16 greedy steps ((a)'s steps cut from 16, (b)'s from 32,
-                for the script's time limit). Gates: prefill_logits and
+                8 greedy steps ((a)'s steps cut from 16, (b)'s from 32 and
+                16, for the script's time limit). Gates: prefill_logits and
                 every decode call's logits within 1e-4 of max, every call
                 fed the
                 unsharded call's tokens and positions, the same outputs
@@ -325,9 +337,9 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 an MHA copy of the same weights whose wk / wv columns are
                 repeated by the reference's head map (K8 at group 1). (b)
                 qwen2-vl-2b at full width cut to 4 layers (12 q heads padded
-                to 16 over 2 kv heads: group 8), (data 1, model 4), four gloo
-                ranks sharing the card (one rank a card over NCCL on a
-                machine of four), model rank 3 holding only the padded heads
+                to 16 over 2 kv heads: group 8), (data 1, model 4), four
+                ranks (one a card over NCCL on a machine of four, else
+                sharing the card over gloo), model rank 3 holding only the padded heads
                 12-15: prefill_logits of 2 x 1 280 tokens (the first 1 024
                 the image's patch embeddings, M-RoPE), 8 decode calls on a
                 cache of 1 024 rows over model whose rows were filled from
@@ -340,6 +352,29 @@ Phases (each a plain function, so a CPU test can rehearse them at a tiny size):
                 hold; each rank's cache bytes the dry run's and its bytes a
                 step decode_step_bytes (b); K8 in every layer of each
                 prefill, no plain call on the card.
+ 21. examples   the five examples/*_torch.py scripts users run, each main in
+                this process on the card at its default sizes (train_lm cut
+                to 8 steps; serve_batched also on Jamba's smoke config, for
+                a Mamba layer), counts reset before each: quickstart (BLESS
+                ladder, R-ACC against exact_rls, FALKON-BLESS, matern32 with
+                the exact-RLS sampler, multi-output and KFoldSweep),
+                falkon_endtoend (BLESS, then data-parallel FALKON on a group
+                of one; a checkpoint), serve_krr (KrrServer), serve_batched
+                (training, ServeEngine, bless_compress_cache), train_lm (the
+                launcher); beside them falkon_endtoend with --device cpu at
+                the same seed and size, in a process of its own. Gates:
+                every example returns numbers, all finite; K5 in BLESS, K1 /
+                K2 / K3 in the fits, K4 in predict and serving, K7 in the
+                sweep, K8 / K9 in the LM forward launched; every plain K8 /
+                K9 call on the card a backward recompute; the test errors
+                of falkon_endtoend on the card and on the CPU within 1e-2.
+
+Multi-rank phases (13 (b), 16 (b), 17 (b), 18, 19, 20 (b)) place every rank
+by one rule (rank_route): its own card over NCCL when the machine has a
+card for every rank, else the shared card over gloo; each logs
+"route=nccl per card" or "route=gloo shared", its world and its wall time.
+The script needs one card; on a machine of four cards every
+multi-rank phase takes the per-card route and phase 18 adds llama4-scout.
 
 Tolerances: Gram 2e-5 absolute; K_nM contractions (K7 too) and the
 quadratic form 1e-4 * max|ref|; RLS scores 5e-4 relative + 5e-5 (tests/test_backend.py's
@@ -1888,6 +1923,111 @@ def krr_online(device, t: dict, bless_t: dict, *, sigma: float = 4.0, lam: float
 
 
 # ---------------------------------------------------------------------------
+# ranks: every multi-rank phase (13 (b), 16 (b), 17 (b), 18, 19, 20 (b)) runs
+# its ranks as processes placed by one rule
+# ---------------------------------------------------------------------------
+
+
+def cards_of(device) -> int:
+    """The cards a phase on ``device`` may place ranks on: the machine's
+    CUDA devices on a card, 1 on the CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def rank_route(rank: int, world: int, device, cards: int) -> tuple[str, str]:
+    """(device, process-group backend) of rank ``rank`` of ``world``: its
+    own card ``cuda:<rank>`` over NCCL when ``device`` is a card and the
+    machine has at least ``world`` cards; else the shared ``device`` over
+    gloo (NCCL refuses two ranks on one card, and the CPU has no NCCL)."""
+    if torch.device(device).type == "cuda" and cards >= world:
+        return f"cuda:{rank}", "nccl"
+    return str(device), "gloo"
+
+
+def route_name(backend: str) -> str:
+    """How a phase's log line names its ranks' route."""
+    return "nccl per card" if backend == "nccl" else "gloo shared"
+
+
+def rank_setup(rank: int, world: int, tmp: str, device: str, backend: str) -> bool:
+    """The start of a rank's process: on a card, the rank's card made the
+    current device and CUDA initialised on it (so a ``DeviceMesh`` keeps
+    it), TF32 off and phase 2's build loaded; on the CPU one thread. Then
+    the ``backend`` group on ``tmp``'s ``file://`` rendezvous, NCCL bound to
+    the rank's card. Returns whether the rank is on a card."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        from repro_torch.kernels import build
+
+        dev = torch.device("cuda", dev.index or 0)  # "cuda": the shared card
+        torch.cuda.set_device(dev)
+        torch.cuda.init()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()  # loads phase 2's build
+    else:
+        torch.set_num_threads(1)
+    bind = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rdv", rank=rank,
+                            world_size=world, **bind)
+    return on_card
+
+
+def run_ranks(fn: str, world: int, tmp: str, device, args: tuple, *, phase: str,
+              timeout: float, cards: int | None = None) -> tuple[list[dict], dict]:
+    """``fn(rank, world, tmp, device, backend, *args)`` of this script in
+    ``world`` processes, each placed by ``rank_route`` (``cards``: the
+    machine's, by default), its output to ``tmp/rank<r>.log``; then each
+    rank's ``tmp/rank<r>.pt``. The first rank to fail, or the time limit,
+    ends the phase: every rank still running is killed with its process
+    tree (under NCCL the others would wait on the dead rank's collectives
+    for ever) and a PhaseError names the failed ranks with their output.
+    Logs the route, the world and the wall time; returns (the ranks'
+    results, {"route", "backend", "world", "wall_s"})."""
+    cards = cards_of(device) if cards is None else cards
+    routes = [rank_route(r, world, device, cards) for r in range(world)]
+    backend = routes[0][1]
+    t0 = time.perf_counter()
+    procs, codes, late = [], [], False
+    try:
+        for r, (dev, be) in enumerate(routes):
+            code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                    f"chip_smoke.{fn}({r}, {world}, {tmp!r}, {dev!r}, {be!r}, *{tuple(args)!r})")
+            with open(f"{tmp}/rank{r}.log", "w") as out:
+                procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
+                                              stderr=subprocess.STDOUT))
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) or all(c == 0 for c in codes):
+                break
+            if time.perf_counter() - t0 > timeout:
+                late = True
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                _kill_tree(p.pid)
+            p.wait()
+    wall_s = time.perf_counter() - t0
+    info = {"route": route_name(backend), "backend": backend, "world": world, "wall_s": wall_s}
+    log(f"{phase}: route={info['route']} world={world} wall={wall_s:.1f} s")
+    failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+    running = [r for r, c in enumerate(codes) if c is None]  # killed here
+    if failed or late:
+        shown = failed or running
+        tails = "".join(f"\nrank {r}:\n" + pathlib.Path(f"{tmp}/rank{r}.log").read_text()[-1500:]
+                        for r in shown[:2])
+        what = (f"ranks {failed} failed" if failed else
+                f"the {world} ranks did not finish in {timeout} s (ranks {running} still running)")
+        raise PhaseError(f"{phase}: {what} ({info['route']}; ranks {running} killed):{tails}")
+    return [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)], info
+
+
+# ---------------------------------------------------------------------------
 # 13. the rest of repro.core: sharded, guarded and fused fits
 # ---------------------------------------------------------------------------
 
@@ -1900,10 +2040,10 @@ CORE_REST_PATH = ("gram", "falkon_matvec", "knm_t", "knm_matvec")
 FUSED_ROWS = 999_000
 
 
-def sharded_rank(rank: int, world: int, tmp: str, device: str, sigma: float, lam: float,
-                 iters: int) -> None:
-    """One rank of phase 13 (b), in its own process: a gloo group on
-    ``tmp``'s file, the whole X from ``tmp/inputs.pt`` on ``device``, a
+def sharded_rank(rank: int, world: int, tmp: str, device: str, backend: str, sigma: float,
+                 lam: float, iters: int) -> None:
+    """One rank of phase 13 (b), in its own process (placed by
+    ``rank_route``): the whole X from ``tmp/inputs.pt`` on ``device``, a
     ``ShardedBackend`` fit and its predictions (the local contractions are
     the kernels on the card); writes ``tmp/rank<r>.pt``."""
     import torch.distributed as dist
@@ -1911,18 +2051,8 @@ def sharded_rank(rank: int, world: int, tmp: str, device: str, sigma: float, lam
     from repro_torch import kernels
     from repro_torch.core import falkon_fit, make_kernel
     from repro_torch.core.backend import ShardedBackend, backend_for_device, default_backend
-    from repro_torch.kernels import build
 
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build()  # loads phase 2's build
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    on_card = rank_setup(rank, world, tmp, device, backend)
     try:
         inp = torch.load(f"{tmp}/inputs.pt")
         x, y, z, a, xte = (inp[k].to(device) for k in ("x", "y", "z", "a_diag", "xte"))
@@ -1958,8 +2088,10 @@ def core_rest(device, t: dict, bless_t: dict, referee: dict, bless_test_error: f
           equal bit for bit to the host-loop fit on the device's backend
           (on the card ``CudaBackend``, whose alpha must equal phase 5's),
           with the same K1, K2 and K3 launches.
-      (b) ``world`` ranks, each its own process on the same device, in a
-          gloo group: each rank's alpha equal to the others' bit for bit;
+      (b) ranks in their own processes (``run_ranks``): one a card over
+          NCCL, as many as the machine's cards, when it has more than one;
+          else ``world`` sharing the device over gloo. Each rank's alpha
+          equal to the others' bit for bit;
           predictions no farther from phase 12's fp64 referee (``referee``:
           its predictions and the K2 fit's distance) than the K2 fit is,
           plus E2E_TOL; test error within 1e-3 of phase 5's; in the group
@@ -2049,35 +2181,18 @@ def core_rest(device, t: dict, bless_t: dict, referee: dict, bless_test_error: f
     if sharded_launches != ref_launches:
         bad.append(f"(a) launches {sharded_launches} against the reference fit's {ref_launches}")
 
-    # (b) ``world`` ranks on the one device, each its own process
+    # (b) ``world`` ranks, each its own process: one a card over NCCL where
+    # the machine has the cards (as many ranks as cards), else sharing the
+    # one device over gloo
+    cards = cards_of(device)
+    world = cards if cards > 1 else world
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"x": x.cpu(), "y": y.cpu(), "z": z.cpu(), "a_diag": a.cpu(),
                     "xte": xte.cpu()}, f"{tmp}/inputs.pt")
-        t0 = time.perf_counter()
-        procs = []
-        try:
-            for r in range(world):
-                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                        f"chip_smoke.sharded_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
-                        f"{sigma!r}, {lam!r}, {iters!r})")
-                with open(f"{tmp}/rank{r}.log", "w") as out:
-                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
-                                                  stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            raise PhaseError(f"(b) the {world} ranks did not finish in {timeout} s") from None
-        finally:
-            for p in procs:
-                p.kill()
-        wall_s = time.perf_counter() - t0
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
-            raise PhaseError(f"(b) ranks {failed} failed; rank {failed[0]}'s output:\n{tail}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+        ranks, run = run_ranks("sharded_rank", world, tmp, device, (sigma, lam, iters),
+                               phase="core-rest (b)", timeout=timeout, cards=cards)
     pred_b = ranks[0]["pred"].to(device)
-    res["b"] = {"world": world, "wall_s": wall_s, "fit_s": [r["fit_s"] for r in ranks],
+    res["b"] = {**run, "fit_s": [r["fit_s"] for r in ranks],
                 "launches": [r["launches"] for r in ranks],
                 "collectives": [r["collectives"] for r in ranks],
                 "picked": [r["picked"] for r in ranks],
@@ -3230,31 +3345,21 @@ def _stage(blocks, h):
     return h
 
 
-def gpipe_rank(rank: int, world: int, tmp: str, device: str, cfg_overrides: dict,
-               seed: int) -> None:
-    """One rank of phase 16 (b), in its own process: a gloo group on
-    ``tmp``'s file, the model from ``seed`` on ``device``, its stage's
+def gpipe_rank(rank: int, world: int, tmp: str, device: str, backend: str,
+               cfg_overrides: dict, seed: int) -> None:
+    """One rank of phase 16 (b), in its own process (placed by
+    ``rank_route``): the model from ``seed`` on ``device``, its stage's
     blocks (an equal share of the layers, in order), the pipelined forward
     and backward of loss = sum(out^2) under a ``CollectiveMeter``; writes
     ``tmp/rank<r>.pt``."""
     import torch.distributed as dist
 
     from repro_torch import kernels
-    from repro_torch.kernels import build
     from repro_torch.launch.roofline import CollectiveMeter
     from repro_torch.models import LM
     from repro_torch.training import pipeline_apply
 
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build()  # loads phase 2's build
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    rank_setup(rank, world, tmp, device, backend)
     try:
         cfg = pipeline_config(**cfg_overrides)
         per = cfg.n_layers // world
@@ -3288,8 +3393,9 @@ def gpipe_rank(rank: int, world: int, tmp: str, device: str, cfg_overrides: dict
 
 def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] = (1, 1024),
           seed: int = 0, cfg_overrides: dict | None = None, timeout: float = 600.0) -> dict:
-    """Phase 16 (b): GPipe over ``world`` ranks sharing the one card
-    (subprocesses, ``file://`` rendezvous, gloo), each holding an equal
+    """Phase 16 (b): GPipe over ``world`` ranks (``run_ranks``: stage r on
+    card r over NCCL where the machine has the cards, else sharing the one
+    card over gloo), each holding an equal
     share of the model's blocks built from one seed; fp32, ``microbatches``
     microbatches of ``mb`` (B, S) tokens of ``SyntheticLM`` embeddings, loss
     = sum(out^2). Gates: the pipelined output within PIPE_OUT_TOL and each
@@ -3316,29 +3422,8 @@ def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] 
         x = lm.embed[tokens].reshape(microbatches, mb[0], mb[1], cfg.d_model)
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"x": x.cpu()}, f"{tmp}/inputs.pt")
-        t0 = time.perf_counter()
-        procs = []
-        try:
-            for r in range(world):
-                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                        f"chip_smoke.gpipe_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
-                        f"{cfg_overrides!r}, {seed!r})")
-                with open(f"{tmp}/rank{r}.log", "w") as out:
-                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
-                                                  stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            raise PhaseError(f"gpipe: the {world} ranks did not finish in {timeout} s") from None
-        finally:
-            for p in procs:
-                p.kill()
-        wall_s = time.perf_counter() - t0
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
-            raise PhaseError(f"gpipe: ranks {failed} failed; rank {failed[0]}'s output:\n{tail}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+        ranks, run = run_ranks("gpipe_rank", world, tmp, device, (cfg_overrides, seed),
+                               phase="launch (b) gpipe", timeout=timeout)
     # the same blocks in sequence, microbatch by microbatch, in this process
     # (once to warm it, as the ranks do; the second pass is timed and read)
     lm.layers.requires_grad_(True)
@@ -3370,8 +3455,8 @@ def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] 
     act = mb[0] * mb[1] * cfg.d_model * x.element_size()
     expect = {"collective-permute": 2 * (world + microbatches - 1) * act,
               "all-reduce": microbatches * act}
-    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "world": world,
-           "microbatches": microbatches, "mb": list(mb), "wall_s": wall_s,
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, **run,
+           "microbatches": microbatches, "mb": list(mb),
            "step_s": [rk["step_s"] for rk in ranks],
            "first_step_s": [rk["first_s"] for rk in ranks], "sequential_s": seq_s,
            "out_err": out_err, "grad_worst": grad_worst, "grad_worst_param": grad_name,
@@ -3405,8 +3490,8 @@ def gpipe(device, *, world: int = 2, microbatches: int = 4, mb: tuple[int, int] 
     return res
 
 
-def launch(device, *, seed: int = 0, cfg=None, steps: int = 4, batch: int = 4,
-           seq: int = 2048, ckpt_every: int = 2, smoke: bool = False,
+def launch(device, *, seed: int = 0, cfg=None, steps: int = 2, batch: int = 4,
+           seq: int = 2048, ckpt_every: int = 1, smoke: bool = False,
            pipe_mb: tuple[int, int] = (1, 1024), pipe_overrides: dict | None = None) -> dict:
     """Phase 16: (a) the launcher on ``cfg`` (mamba2-370m at full width and
     depth), killed after a checkpoint and relaunched; (b) GPipe over two
@@ -3448,6 +3533,19 @@ TP_DENSE_ARCH, TP_DENSE_LAYERS = "qwen3-32b", 1
 #: worst leaf: the model's fp32 noise at that depth, measured in the run
 #: (phases 4 and 12 gate an fp32 fit so against its fp64 referee).
 TP_REFEREED = ("mamba2-370m",)
+#: a gradient leaf 0 in exact arithmetic (the router at top_k = 1, whose one
+#: choice's gate is renormalised to p / p = 1, ROADMAP C.1f) is held to 0 on
+#: both sides to within this share of the model's largest gradient (each
+#: side's fp32 rounding; tests/test_torch_sharded.py's ZERO_TOL).
+TP_ZERO_TOL = 1e-6
+
+
+def zero_grad_leaves(cfg) -> set:
+    """The leaves whose gradient is 0 in exact arithmetic: every MoE layer's
+    router at top_k = 1."""
+    if not cfg.n_experts or cfg.top_k != 1:
+        return set()
+    return {f"layers.{i}.moe.router" for i in range(cfg.n_layers) if cfg.mlp_kind(i) == "moe"}
 
 
 def shard_step_bytes(cfg, dp: int, mp: int, rows: int, seq: int, loss_chunks: int, *,
@@ -3696,7 +3794,8 @@ def shard_launcher(device, cfg, *, world: int = SHARD_WORLD, steps: int = 8, bat
                    one_rank_loss: float | None = None, timeout: float = 900.0) -> dict:
     """Phase 17 (a): ``torchrun --nproc-per-node world -m
     repro_torch.launch.train --mesh local`` on ``cfg`` (every rank on
-    ``data``, gloo on one card), as a user runs it: once uninterrupted into
+    ``data``; one rank a card over NCCL where the machine has the cards,
+    else gloo on one card), as a user runs it: once uninterrupted into
     D1; once into D2, SIGKILLed (torchrun and its ranks, one process group)
     as soon as step ``ckpt_every``'s checkpoint has committed, and
     relaunched. Gates: the relaunch restores at ``ckpt_every``; every step's
@@ -3837,8 +3936,10 @@ def shard_launcher(device, cfg, *, world: int = SHARD_WORLD, steps: int = 8, bat
         bad.append(f"peak bytes while drawing the params {[r['init_peak_bytes'] for r in ranks]}"
                    f" > {init_bound} (the blocks and one whole leaf)")
     done = runs["uninterrupted"]["done"] or {}
-    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "world": world, "steps": steps,
-           "batch": batch, "seq": seq, "ckpt_every": ckpt_every,
+    # the launcher's own rule (launch.mesh.backend_for) is rank_route's
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "world": world,
+           "route": route_name(rank_route(0, world, device, cards_of(device))[1]),
+           "steps": steps, "batch": batch, "seq": seq, "ckpt_every": ckpt_every,
            "runs": {k: {kk: vv for kk, vv in v.items() if kk not in ("steps", "rank_launches")}
                     for k, v in runs.items()},
            "losses": [r["loss"] for r in runs["uninterrupted"]["steps"]],
@@ -3906,11 +4007,11 @@ def moe_drops():
         moe.route_group = route
 
 
-def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: dict,
-            mesh: tuple[int, int], rows: int, seq: int, chunks: int, seed: int,
-            adamw: bool = True) -> None:
-    """One rank of phase 17 (b) and 18, in its own process: a gloo group on
-    ``tmp``'s file, a (data, model) ``DeviceMesh``, the params' blocks of
+def tp_rank(rank: int, world: int, tmp: str, device: str, backend: str, arch: str,
+            overrides: dict, mesh: tuple[int, int], rows: int, seq: int, chunks: int,
+            seed: int, adamw: bool = True) -> None:
+    """One rank of phase 17 (b) and 18, in its own process (placed by
+    ``rank_route``): a (data, model) ``DeviceMesh``, the params' blocks of
     the seed's model drawn leaf by leaf (``models.init_blocks``, as the
     launcher does), its rows of the batch, one step of ``make_train_step``
     (``adamw``; else ``loss_and_grads``, no optimizer state) under a
@@ -3922,24 +4023,13 @@ def tp_rank(rank: int, world: int, tmp: str, device: str, arch: str, overrides: 
 
     from repro_torch import kernels
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import build
     from repro_torch.launch.roofline import CollectiveMeter
     from repro_torch.models import LM, init_blocks, param_specs
     from repro_torch.optim import adamw_init
     from repro_torch.sharding import MeshCtx, collectives, mesh_coords, set_mesh_ctx
     from repro_torch.training import TrainState, loss_and_grads, make_train_step
 
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)  # every rank shares the one card
-        torch.cuda.init()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build()  # loads phase 2's build
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    on_card = rank_setup(rank, world, tmp, device, backend)
     try:
         cfg = tp_config(arch, **overrides)
         dmesh = init_device_mesh(torch.device(device).type, mesh,
@@ -4029,15 +4119,18 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
                     overrides: dict | None = None, timeout: float = 900.0,
                     adamw: bool = True, phase: str = "shard (b)") -> dict:
     """Phase 17 (b): one fp32 step of ``make_train_step`` on ``tp_config(arch)``
-    over a (data, model) = ``mesh`` of ranks sharing the card (subprocesses,
-    gloo, ``file://`` rendezvous), each with ``rows`` rows of ``seq`` tokens
+    over a (data, model) = ``mesh`` of ranks (``run_ranks``: one a card over
+    NCCL where the machine has the cards, else sharing the card over gloo),
+    each with ``rows`` rows of ``seq`` tokens
     and its blocks of the seed's model; then the same step unsharded on the
     card in this process, once the ranks have exited, and for an ``arch``
     in TP_REFEREED on the host CPU from the card's weights. Gates: the loss
     within TP_LOSS_RTOL; every gradient (each rank's blocks against the
     unsharded one's, recovered from AdamW's first mu on both sides) within
     TP_GRAD_TOL of its max, plus, where refereed, the CPU step's largest
-    such distance from the card's over all leaves; each rank's
+    such distance from the card's over all leaves (a leaf 0 in exact
+    arithmetic, ``zero_grad_leaves``, within TP_ZERO_TOL of the model's
+    largest gradient on both sides); each rank's
     ``CollectiveMeter`` bytes
     ``shard_step_bytes``; on the card K8 and K9 launched in every layer on
     every rank (twice under remat). Without ``adamw`` (phase 18) the step
@@ -4055,32 +4148,9 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     world = mesh[0] * mesh[1]
     on_card = torch.device(device).type == "cuda"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        t0 = time.perf_counter()
-        procs = []
-        try:
-            for r in range(world):
-                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                        f"chip_smoke.tp_rank({r}, {world}, {tmp!r}, {str(device)!r}, {arch!r}, "
-                        f"{overrides!r}, {tuple(mesh)!r}, {rows}, {seq}, {chunks}, {seed}, "
-                        f"{adamw})")
-                with open(f"{tmp}/rank{r}.log", "w") as out:
-                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
-                                                  stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            raise PhaseError(f"{phase}: the {world} ranks did not finish in {timeout} s") \
-                from None
-        finally:
-            for p in procs:
-                p.kill()
-        wall_s = time.perf_counter() - t0
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tail = pathlib.Path(f"{tmp}/rank{failed[0]}.log").read_text()[-3000:]
-            raise PhaseError(f"{phase} {arch}: ranks {failed} failed; rank {failed[0]}'s "
-                             f"output:\n{tail}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+        ranks, run = run_ranks("tp_rank", world, tmp, device,
+                               (arch, overrides, tuple(mesh), rows, seq, chunks, seed, adamw),
+                               phase=f"{phase} {cfg.name}", timeout=timeout)
     # the same step unsharded on the card, from the same seed
     lm = LM(cfg, seed=seed, device=str(device))
     params = {k: p.detach().requires_grad_(True) for k, p in lm.named_parameters()}
@@ -4092,7 +4162,7 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
     kernels.reset_launch_counts()
     loss, ref, ref_s = _tp_grads(cfg, params, batch, chunks, adamw)
     del params
-    noise, cpu_s = {}, None
+    noise, cpu_s, zero = {}, None, zero_grad_leaves(cfg)
     if host is not None:  # the referee: the same step on the host CPU
         threads = torch.get_num_threads()
         torch.set_num_threads(os.cpu_count() or threads)
@@ -4101,14 +4171,21 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
                                         chunks, adamw)
         finally:
             torch.set_num_threads(threads)
-        noise = {k: _leaf_err(g, ref[k].cpu()) for k, g in grads.items()}
+        noise = {k: _leaf_err(g, ref[k].cpu()) for k, g in grads.items() if k not in zero}
         del host, grads
     shape = MeshShape(("data", "model"), tuple(mesh))
     specs = param_specs(cfg, MeshCtx(mesh=shape))
     noise_worst = max(noise.items(), key=lambda kv: kv[1], default=(None, 0.0))
     bound = TP_GRAD_TOL + noise_worst[1]
-    worst, worst_name, over = 0.0, None, []
+    worst, worst_name, over, zeros = 0.0, None, [], {}
+    top = max(float(g.abs().max()) for g in ref.values())
     for k, g in ref.items():
+        if k in zero:  # both sides 0 to within their rounding
+            zeros[k] = max([float(g.abs().max())]
+                           + [float(rk["grads"][k].abs().max()) for rk in ranks]) / top
+            if not zeros[k] <= TP_ZERO_TOL:
+                over.append(f"{k} (0 in exact arithmetic) {zeros[k]:.3e} of the largest")
+            continue
         e = max(_leaf_err(rk["grads"][k], block(g, specs[k], shape, rk["coords"]).cpu())
                 for rk in ranks)
         if not e <= worst:
@@ -4124,8 +4201,8 @@ def tensor_parallel(device, arch: str, *, mesh: tuple[int, int] = TP_MESH, rows:
            "loss_rel": loss_rel, "grad_worst": worst, "grad_worst_param": worst_name,
            "referee_worst": noise_worst[1] if noise else None,
            "referee_worst_param": noise_worst[0], "grad_bound": bound,
-           "referee_at_grad_worst": noise.get(worst_name), "over": over,
-           "wall_s": wall_s, "step_s": [rk["step_s"] for rk in ranks],
+           "referee_at_grad_worst": noise.get(worst_name), "zero_leaves": zeros, "over": over,
+           **run, "step_s": [rk["step_s"] for rk in ranks],
            "init_s": [rk["init_s"] for rk in ranks], "unsharded_step_s": ref_s,
            "cpu_step_s": cpu_s, "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
            "calls": [rk["calls"] for rk in ranks],
@@ -4210,24 +4287,39 @@ def shard_launch(device, *, seed: int = 0) -> dict:
 #: cut to 1 for the script's time limit).
 MOE_SHARD = {"jamba-v0.1-52b": ({"n_layers": 2}, "ep"),
              "granite-moe-3b-a800m": ({"n_layers": 1, "moe_sharding": "tp"}, "tp")}
+#: phase 18's case for one rank a card only: llama4-scout at full width cut
+#: to 1 layer (40 q heads padded to 48 over 8 kv heads; 16 experts of 3 x
+#: 5 120 x 8 192 in ``ep``, 8 a rank, top_k 1, a shared expert; vocabulary
+#: 202 048): ~4.3e9 parameters, 17 GB in fp32 and as much again in
+#: gradients, which four ranks sharing one card over gloo would stage
+#: through the host. Its top_k = 1 router takes no gradient (TP_ZERO_TOL).
+MOE_PER_CARD = {"llama4-scout-17b-a16e": ({"n_layers": 1}, "ep")}
 
 
 def moe_shard(device, *, seed: int = 0, seq: int = 512, overrides: dict | None = None,
-              timeout: float = 900.0) -> dict:
+              timeout: float = 900.0, cases: dict | None = None) -> dict:
     """Phase 18: one fp32 gradient (``loss_and_grads``, no optimizer state)
-    of each MOE_SHARD model on a (data, model) = TP_MESH mesh of ranks
-    sharing the card, one row of ``seq`` tokens a data rank, against the
-    same gradient unsharded on the card once the ranks have exited
+    of each case (``cases``, by default MOE_SHARD's models and, where the
+    ranks run one a card, MOE_PER_CARD's) on a (data, model) = TP_MESH mesh
+    of ranks, one row of ``seq`` tokens a data rank, against the same
+    gradient unsharded on the card once the ranks have exited
     (``tensor_parallel``'s gates: loss, every gradient leaf over its max,
     each rank's bytes ``shard_step_bytes`` without the norm, K8 / K9 in
     every layer on every rank, twice under remat). ``overrides`` (the CPU
-    rehearsal's widths) apply to both models."""
+    rehearsal's widths) apply to every model."""
     from repro_torch.models.config import TP
 
     if torch.device(device).type == "cuda":
         build_kernels()  # the ranks' processes load this build
+    world = TP_MESH[0] * TP_MESH[1]
+    per_card = rank_route(0, world, device, cards_of(device))[1] == "nccl"
+    if cases is None:
+        cases = {**MOE_SHARD, **(MOE_PER_CARD if per_card else {})}
+        if not per_card:
+            log(f"moe_shard: {', '.join(MOE_PER_CARD)} runs with one rank a card only "
+                f"({cards_of(device)} card(s) for {world} ranks)")
     res = {}
-    for arch, (cut, mode) in MOE_SHARD.items():
+    for arch, (cut, mode) in cases.items():
         over = {**cut, **(overrides or {})}
         if tp_config(arch, **over).moe_mode(TP) != mode:
             raise PhaseError(f"moe_shard: {arch} is not in the {mode} layout")
@@ -4235,14 +4327,15 @@ def moe_shard(device, *, seed: int = 0, seq: int = 512, overrides: dict | None =
         res[arch] = tensor_parallel(device, arch, seq=seq, seed=seed, overrides=over,
                                     adamw=False, phase="moe_shard", timeout=timeout)
         res[arch]["phase_s"] = time.perf_counter() - t0
-    res["launches"] = {n: sum(res[a]["launches"][n] for a in MOE_SHARD) for n in LM_KERNELS}
+    res["launches"] = {n: sum(res[a]["launches"][n] for a in cases) for n in LM_KERNELS}
     return res
 
 
 #: phase 19: (a) Jamba at full width cut to SERVE_JAMBA_LAYERS layers, four
 #: slots, the cache's sequence over ``model`` (decode_32k's layout); (b)
-#: gemma-2b at full width and depth, one sequence, its cache over all four
-#: ranks (long_500k's). Both in fp32, on (data 2, model 2).
+#: gemma-2b at full width cut to SERVE_GEMMA_LAYERS layers, one sequence,
+#: its cache over all four ranks (long_500k's). Both in fp32, on (data 2,
+#: model 2).
 SERVE_MESH = (2, 2)
 #: phase 19 (a)'s depth: Mamba + dense MLP, Mamba + MoE, twice, then
 #: attention + dense MLP: every kind of layer of Jamba's 8-layer period.
@@ -4251,9 +4344,13 @@ SERVE_MESH = (2, 2)
 #: max|logits| even with the MoE routing fixed, so no bf16 gate tells a
 #: right decode from a wrong one.
 SERVE_JAMBA_LAYERS = 5
+#: phase 19 (b)'s depth: half of gemma-2b's 18 layers (every layer alike),
+#: cut for the script's time limit (its 136 decode calls over gloo took
+#: ~47 s of a slow host's 1 264 s at 18 layers)
+SERVE_GEMMA_LAYERS = 9
 SERVE_PARTS = {"a": dict(batch=4, prompt=32, max_len=2048, steps=8, join_at=2,
                         draw_in_turn=True),  # four ranks' draws at once exceed the card
-               "b": dict(batch=1, prompt=128, max_len=32768, steps=16, draw_in_turn=False)}
+               "b": dict(batch=1, prompt=128, max_len=32768, steps=8, draw_in_turn=False)}
 #: phase 19's logits against the unsharded run's, over max|logits| (fp32)
 SERVE_FP32_TOL = 1e-4
 
@@ -4261,12 +4358,13 @@ SERVE_FP32_TOL = 1e-4
 def serve_config(part: str, **overrides):
     """Phase 19's models, in fp32: (a) Jamba at full width cut to
     SERVE_JAMBA_LAYERS layers (4 Mamba, 1 attention, 2 MoE in ``ep``); (b)
-    gemma-2b at full width and depth."""
+    gemma-2b at full width cut to SERVE_GEMMA_LAYERS layers."""
     from repro_torch.configs import get_config
 
     if part == "a":
         return lm_config(**{"n_layers": SERVE_JAMBA_LAYERS, "dtype": "float32", **overrides})
-    return dataclasses.replace(get_config(NYSTROM_ARCH), dtype="float32", **overrides)
+    return dataclasses.replace(get_config(NYSTROM_ARCH), dtype="float32",
+                               **{"n_layers": SERVE_GEMMA_LAYERS, **overrides})
 
 
 def _engine_ops(prompt: int, steps: int, join_at: int, vocab: int, seed: int) -> list:
@@ -4308,10 +4406,10 @@ def _serve_script(lm, part: str, inp: dict, device, rows: slice = slice(None)) -
     return outputs, cache
 
 
-def serve_rank(rank: int, world: int, tmp: str, device: str, part: str, overrides: dict,
-               mesh: tuple[int, int], seed: int) -> None:
-    """One rank of phase 19, in its own process: a gloo group on ``tmp``'s
-    file, ``serve_ctx``'s layout of the part's batch on a (data, model)
+def serve_rank(rank: int, world: int, tmp: str, device: str, backend: str, part: str,
+               overrides: dict, mesh: tuple[int, int], seed: int) -> None:
+    """One rank of phase 19, in its own process (placed by ``rank_route``):
+    ``serve_ctx``'s layout of the part's batch on a (data, model)
     ``DeviceMesh``, the seed's blocks drawn leaf by leaf (one rank at a
     time where the part says so: each whole leaf is drawn on the card
     before it is cut) and held by a weightless LM. Then ``prefill_logits``
@@ -4325,24 +4423,13 @@ def serve_rank(rank: int, world: int, tmp: str, device: str, part: str, override
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import kernels
-    from repro_torch.kernels import build
     from repro_torch.launch.roofline import CollectiveMeter
     from repro_torch.models import LM, init_blocks, param_specs
     from repro_torch.models.model import padded_vocab
     from repro_torch.serving import prefill_logits
     from repro_torch.sharding import collectives, serve_ctx, set_mesh_ctx
 
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(0)  # every rank shares the one card
-        torch.cuda.init()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build()  # loads phase 2's build
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    on_card = rank_setup(rank, world, tmp, device, backend)
     try:
         inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
         cfg = serve_config(part, **overrides)
@@ -4433,8 +4520,9 @@ def serve_mesh(device, part: str, *, seed: int = 0, overrides: dict | None = Non
     them): the unsharded model on the card first (``prefill_logits`` and
     ``_serve_script``, every ``decode_step`` call recorded with its tokens,
     positions and logits), freed; then ``serve_rank`` on the mesh's ranks
-    sharing the card, each running the same script with its own tokens and
-    MoE routing. Gates, fp32: ``prefill_logits`` and every ``decode_step``
+    (``run_ranks``: one a card over NCCL, drawing their blocks at once,
+    where the machine has the cards; else sharing the card over gloo), each
+    running the same script with its own tokens and MoE routing. Gates, fp32: ``prefill_logits`` and every ``decode_step``
     call's logits within SERVE_FP32_TOL of max|logits| of the unsharded
     call's, every call fed the unsharded call's tokens and positions, the
     unsharded run's outputs on every rank; each rank's cache bytes the dry
@@ -4460,8 +4548,12 @@ def serve_mesh(device, part: str, *, seed: int = 0, overrides: dict | None = Non
     tol = SERVE_FP32_TOL
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             generator=torch.Generator().manual_seed(seed + 3))
+    # ranks sharing the card draw their blocks one at a time where the part
+    # says so; one a card, all at once
+    cards = cards_of(device)
+    per_card = rank_route(0, world, device, cards)[1] == "nccl"
     inp = {"batch": batch, "max_len": max_len, "prompt": prompt, "steps": steps,
-           "prompts": prompts, "draw_in_turn": sh["draw_in_turn"],
+           "prompts": prompts, "draw_in_turn": sh["draw_in_turn"] and not per_card,
            "ops": _engine_ops(prompt, steps, sh["join_at"], cfg.vocab_size, seed)
            if part == "a" else None}
     # the unsharded run, every decode call recorded
@@ -4488,31 +4580,10 @@ def serve_mesh(device, part: str, *, seed: int = 0, overrides: dict | None = Non
     inp.update(calls=calls, refs=refs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         torch.save(inp, f"{tmp}/inputs.pt")
-        t0 = time.perf_counter()
-        procs = []
-        try:
-            for r in range(world):
-                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                        f"chip_smoke.serve_rank({r}, {world}, {tmp!r}, {str(device)!r}, "
-                        f"{part!r}, {overrides!r}, {tuple(mesh)!r}, {seed})")
-                with open(f"{tmp}/rank{r}.log", "w") as out:
-                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
-                                                  stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            raise PhaseError(f"serve_shard ({part}): the {world} ranks did not finish in "
-                             f"{timeout} s") from None
-        finally:
-            for p in procs:
-                p.kill()
-        wall_s = time.perf_counter() - t0
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tails = "".join(f"\nrank {r}:\n" + pathlib.Path(f"{tmp}/rank{r}.log").read_text()[-1500:]
-                            for r in failed)
-            raise PhaseError(f"serve_shard ({part}) {cfg.name}: ranks {failed} failed:{tails}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+        ranks, run = run_ranks("serve_rank", world, tmp, device,
+                               (part, overrides, tuple(mesh), seed),
+                               phase=f"serve_shard ({part}) {cfg.name}", timeout=timeout,
+                               cards=cards)
     dry = tree_bytes(cache_sds(cfg, batch, max_len,
                                MeshCtx(mesh=MeshShape(("data", "model"), tuple(mesh)))))
     expect = decode_step_bytes(cfg, mesh[0], mesh[1], batch, max_len, layout)
@@ -4531,7 +4602,8 @@ def serve_mesh(device, part: str, *, seed: int = 0, overrides: dict | None = Non
            "rank_cache_bytes": [rk["cache_bytes"] for rk in ranks], "dryrun_cache_bytes": dry,
            "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
            "step_ms_median": [1e3 * median(rk["step_s"]) for rk in ranks],
-           "unsharded_s": unsharded_s, "wall_s": wall_s, "init_s": [rk["init_s"] for rk in ranks],
+           "unsharded_s": unsharded_s, **run, "draw_in_turn": inp["draw_in_turn"],
+           "init_s": [rk["init_s"] for rk in ranks],
            "draw_s": [rk["draw_s"] for rk in ranks],
            "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
            "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
@@ -4778,24 +4850,13 @@ def padded_rank(rank: int, world: int, tmp: str, device: str, backend: str,
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import kernels
-    from repro_torch.kernels import build
     from repro_torch.launch.roofline import CollectiveMeter
     from repro_torch.models import LM, init_blocks, param_specs
     from repro_torch.models.attention import bless_compress_cache
     from repro_torch.serving import prefill_logits
     from repro_torch.sharding import collectives, serve_ctx, set_mesh_ctx
 
-    on_card = torch.device(device).type == "cuda"
-    if on_card:
-        torch.cuda.set_device(torch.device(device).index or 0)  # "cuda": the shared card
-        torch.cuda.init()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build()  # loads phase 2's build
-    else:
-        torch.set_num_threads(1)
-    dist.init_process_group(backend, init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    on_card = rank_setup(rank, world, tmp, device, backend)
     try:
         inp = torch.load(f"{tmp}/inputs.pt", weights_only=False)
         cfg = padded_config("b", **overrides)
@@ -4885,7 +4946,6 @@ def padded_mesh(device, *, seed: int = 0, overrides: dict | None = None,
     cfg = padded_config("b", **overrides)
     on_card = torch.device(device).type == "cuda"
     world = mesh[0] * mesh[1]
-    per_card = on_card and cards >= world
     g = torch.Generator().manual_seed(seed + 5)
     batch, prompt, max_len = sh["batch"], sh["prompt"], sh["max_len"]
     inp = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g),
@@ -4908,36 +4968,11 @@ def padded_mesh(device, *, seed: int = 0, overrides: dict | None = None,
     unsharded_step_s = (time.perf_counter() - t0) / sh["steps"]
     del lm, cache
     _free(device)
-    backend = "nccl" if per_card else "gloo"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_padded_") as tmp:
         torch.save(inp, f"{tmp}/inputs.pt")
-        t0 = time.perf_counter()
-        procs = []
-        try:
-            for r in range(world):
-                dev = f"cuda:{r}" if per_card else str(device)
-                code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                        f"chip_smoke.padded_rank({r}, {world}, {tmp!r}, {dev!r}, {backend!r}, "
-                        f"{overrides!r}, {tuple(mesh)!r}, {seed})")
-                with open(f"{tmp}/rank{r}.log", "w") as out:
-                    procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=out,
-                                                  stderr=subprocess.STDOUT))
-            for p in procs:
-                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            raise PhaseError(f"padded_heads (b): the {world} ranks did not finish in "
-                             f"{timeout} s") from None
-        finally:
-            for p in procs:
-                p.kill()
-        wall_s = time.perf_counter() - t0
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            tails = "".join(f"\nrank {r}:\n"
-                            + pathlib.Path(f"{tmp}/rank{r}.log").read_text()[-1500:]
-                            for r in failed)
-            raise PhaseError(f"padded_heads (b) {cfg.name}: ranks {failed} failed:{tails}")
-        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+        ranks, run = run_ranks("padded_rank", world, tmp, device, (overrides, tuple(mesh), seed),
+                               phase=f"padded_heads (b) {cfg.name}", timeout=timeout,
+                               cards=cards)
     # the unsharded call on the ranks' cache, assembled from their blocks (the
     # rows the decode calls wrote are the ranks' own rounding of the unsharded
     # run's), against each rank's block of the compressed cache
@@ -4965,7 +5000,7 @@ def padded_mesh(device, *, seed: int = 0, overrides: dict | None = None,
     res = {"part": "b", "arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.padded_heads()],
            "group": cfg.padded_heads() // cfg.padded_kv_heads(), "mesh": list(mesh),
-           "backend": backend, **sh, "tol": PADDED_TOL,
+           **run, **sh, "tol": PADDED_TOL,
            "prefill_err": [rk["prefill_err"] for rk in ranks],
            "step_err_worst": max(max(rk["errs"]) for rk in ranks),
            "compress_equal": [all(rk["compress_equal"]) for rk in ranks],
@@ -4973,7 +5008,7 @@ def padded_mesh(device, *, seed: int = 0, overrides: dict | None = None,
            "bytes": [rk["bytes"] for rk in ranks], "expected_bytes": expect,
            "step_ms": [1e3 * rk["step_s"] for rk in ranks],
            "unsharded_step_ms": 1e3 * unsharded_step_s,
-           "compress_s": [rk["compress_s"] for rk in ranks], "wall_s": wall_s,
+           "compress_s": [rk["compress_s"] for rk in ranks],
            "init_s": [rk["init_s"] for rk in ranks],
            "rank_peak_bytes": [rk["peak_bytes"] for rk in ranks],
            "rank_launches": [{n: rk["launches"][n] for n in LM_KERNELS} for rk in ranks],
@@ -5020,16 +5055,156 @@ def padded_heads(device, *, seed: int = 0, overrides: dict | None = None,
     res["a"]["phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["b"] = padded_mesh(device, seed=seed, overrides=over.get("b"), timeout=timeout,
-                           cards=torch.cuda.device_count() if on_card else 1,
+                           cards=cards_of(device),
                            **shapes.get("b", {}))
     res["b"]["phase_s"] = time.perf_counter() - t0
     res["launches"] = {n: res["a"]["launches"][n] + res["b"]["launches"][n] for n in LM_KERNELS}
     return res
 
 
+# ---------------------------------------------------------------------------
+# 21. the examples: the five ``examples/*_torch.py`` scripts users run
+# ---------------------------------------------------------------------------
+
+#: each example's flags beside ``--seed`` and ``--device`` (its default sizes;
+#: train_lm cut to 8 steps, each logged) and the kernels it must launch on
+#: the card: K5 in BLESS, K1 / K2 / K3 in the fits, K4 in predict and
+#: serving, K7 in the k-fold sweep, K8 / K9 in the LM's forward. The default
+#: serve_batched (qwen3-32b's smoke config) has no Mamba layer, so it runs
+#: again on Jamba's, which has both mixers.
+EXAMPLES = {
+    "quickstart": ([], ("rls_score", "gram", "falkon_matvec", "knm_t", "knm_matvec",
+                        "falkon_matvec_masked")),
+    "falkon_endtoend": ([], ("rls_score", "gram", "falkon_matvec", "knm_t", "knm_matvec")),
+    "serve_krr": ([], ("rls_score", "gram", "falkon_matvec", "knm_t", "knm_matvec")),
+    "serve_batched": ([], ("flash_attention",)),
+    "serve_batched@jamba": (["--arch", "jamba-v0.1-52b"], ("flash_attention", "ssd")),
+    "train_lm": (["--steps", "8", "--log-every", "1"], ("flash_attention",)),
+}
+#: falkon_endtoend's test error on the card against the same script on the
+#: CPU at the same seed and size (two fp32 orders of one fit at lam 1e-6)
+EXAMPLE_ERR_TOL = 1e-2
+
+
+def example_module(name: str):
+    """``examples/<name>_torch.py`` of this checkout, imported."""
+    path = REPO / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _numbers(obj) -> list[float]:
+    """Every number in a result tree of dicts, lists and tuples."""
+    if isinstance(obj, dict):
+        return [v for x in obj.values() for v in _numbers(x)]
+    if isinstance(obj, (list, tuple)):
+        return [v for x in obj for v in _numbers(x)]
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return [float(obj)]
+    return []
+
+
+def examples(device, *, seed: int = 0, flags: dict | None = None) -> dict:
+    """Phase 21: each EXAMPLES script's ``main`` in this process on
+    ``device`` at its default sizes (``flags``, the CPU rehearsal's, added
+    per example), the launch counts reset before each and read after;
+    beside them, in a process of its own on half the host's cores,
+    falkon_endtoend with ``--device cpu`` at the same seed and size. Gates:
+    every example returns numbers, all finite; on the card each launches
+    the kernels EXAMPLES names, and every plain K8 / K9 call on the card is
+    a training backward's recompute; falkon_endtoend's test error within
+    EXAMPLE_ERR_TOL of the CPU run's."""
+    import tempfile
+
+    from repro_torch import kernels
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        build_kernels()
+    flags = flags or {}
+    res, bad = {}, []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        def argv_of(key, dev):
+            name = key.split("@")[0]
+            ckpt = {"falkon_endtoend": ["--ckpt", f"{tmp}/{key}-{dev}"],
+                    "train_lm": ["--ckpt-dir", f"{tmp}/{key}-{dev}"]}.get(name, [])
+            return EXAMPLES[key][0] + flags.get(key, []) + ckpt + ["--seed", str(seed),
+                                                                   "--device", dev]
+
+        def run(key):
+            name, argv = key.split("@")[0], argv_of(key, str(device))
+            log(f"examples: {name}_torch.py {' '.join(argv)}")
+            sync(device)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = example_module(name).main(argv)
+            sync(device)
+            return {"argv": argv, "seconds": time.perf_counter() - t0, "out": out,
+                    "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                    "plain": kernels.plain_counts()}
+
+        # the CPU referee: the script as a user runs it with --device cpu; its
+        # last line, main's result
+        ref_argv = argv_of("falkon_endtoend", "cpu")
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "out = chip_smoke.example_module('falkon_endtoend').main(sys.argv[2:]); "
+                "print(json.dumps({k: v for k, v in out.items() if k != 'ckpt'}))")
+        env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+        t_ref = time.perf_counter()
+        cpu = subprocess.Popen([sys.executable, "-c", code, str(REPO), *ref_argv], env=env,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            for key in EXAMPLES:
+                res[key] = run(key)
+            text = cpu.communicate(timeout=900)[0]
+        finally:
+            if cpu.poll() is None:
+                cpu.kill()
+            cpu.wait()
+        if cpu.returncode != 0:
+            raise PhaseError(f"examples: falkon_endtoend with --device cpu exited "
+                             f"{cpu.returncode}:\n{text[-3000:]}")
+        ref = res["falkon_endtoend@cpu"] = {"argv": ref_argv, "out": json.loads(
+            text.strip().splitlines()[-1]), "seconds": time.perf_counter() - t_ref,
+            "launches": {}}
+        for key, (_, want) in EXAMPLES.items():
+            r = res[key]
+            nums = _numbers(r["out"])
+            if not nums or not all(math.isfinite(v) for v in nums):
+                bad.append(f"{key} returned {r['out']!r}")
+            if on_card:
+                missing = [k for k in want if not r["launches"].get(k)]
+                if missing:
+                    bad.append(f"{key} launched no {missing} (launches {r['launches']})")
+                extra = {k: v for k, v in r["plain"].items()
+                         if v["cuda_calls"] != v["backward_recomputes"]}
+                if extra:
+                    bad.append(f"{key} called a plain version on the card outside a backward: "
+                               f"{extra}")
+    gap = abs(res["falkon_endtoend"]["out"]["test_err"] - ref["out"]["test_err"])
+    if not gap <= EXAMPLE_ERR_TOL:
+        bad.append(f"falkon_endtoend's test error {res['falkon_endtoend']['out']['test_err']} "
+                   f"against {ref['out']['test_err']} with --device cpu: {gap:.4f} apart > "
+                   f"{EXAMPLE_ERR_TOL}")
+    out = {"seconds": {k: r["seconds"] for k, r in res.items()},
+           "phase_s": time.perf_counter() - t_phase, "test_err_gap": gap,
+           "launches": {n: sum(r["launches"].get(n, 0) for k, r in res.items() if k in EXAMPLES)
+                        for n in {**KERNELS, **LM_KERNELS}},
+           "examples": {k: {kk: v for kk, v in r.items() if kk != "out"} for k, r in res.items()}}
+    log(f"examples: {json.dumps(out)}")
+    if bad:
+        raise PhaseError("examples failed: " + "; ".join(bad))
+    out["results"] = {k: r["out"] for k, r in res.items()}
+    return out
+
+
 #: the phases ``--phase`` runs alone (each a function of this script).
 ALONE = ("serve", "nystrom", "train", "launch", "shard", "shard_launch", "moe_shard",
-         "serve_shard", "padded_heads")
+         "serve_shard", "padded_heads", "examples")
 
 
 def run_alone(names, tree: str | None, seed: int) -> int:
@@ -5138,6 +5313,8 @@ def main(argv=None) -> int:
         mark("serve_shard")
         pad = padded_heads("cuda", seed=args.seed)
         mark("padded_heads")
+        exa = examples("cuda", seed=args.seed)
+        mark("examples")
     except PhaseError as e:
         print(f"chip_smoke: FAIL {e}", file=sys.stderr)
         return 1
@@ -5148,8 +5325,8 @@ def main(argv=None) -> int:
     # 14's exact prefill, phase 15's training steps, phase 16's launcher
     # runs and pipeline ranks, phase 17's sharded ranks, phase 18's MoE ranks,
     # the prefill_logits of phase 19's serving ranks, and phase 20's padded
-    # prefill and its ranks' prefill_logits
-    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd, moe, srs, pad)
+    # prefill and its ranks' prefill_logits, and the examples of phase 21
+    paths = (e2e, fb, cv, clf, krr, rest, dvf, srv, nys, trn, lch, shd, moe, srs, pad, exa)
     launches = {name: sum(p["launches"].get(name, 0) for p in paths)
                 for name in {**KERNELS, **LM_KERNELS}}
     for name in LM_KERNELS:
@@ -5203,7 +5380,7 @@ def main(argv=None) -> int:
     ra, rb, rc, rd = rest["a"], rest["b"], rest["c"], rest["d"]
     log(f"core-rest: (a) one-rank sharded fit {ra['fit_s']:.3f} s ({ra['collectives']} "
         f"collectives) against the CudaBackend refit's {ra['reference_fit_s']:.3f} s and phase "
-        f"5's FALKON-BLESS fit {fb['fit_s']:.3f} s; (b) {rb['world']} ranks on one card: fits "
+        f"5's FALKON-BLESS fit {fb['fit_s']:.3f} s; (b) {rb['world']} ranks ({rb['route']}): fits "
         f"{json.dumps(rb['fit_s'])} s, wall {rb['wall_s']:.1f} s, fp64 referee "
         f"{rb['referee']:.3e} (K2 fit {rb['k2_fit_referee']:.3e}), test error "
         f"{rb['test_error']:.5f}; (c) guarded {rc['fit_s']:.3f} s, dying primary raised "
@@ -5265,12 +5442,13 @@ def main(argv=None) -> int:
         f"restore {rr['restore_s']:.3f} s, step-{la['steps']} checkpoints bit-identical "
         f"{la['bit_identical']} ({la['leaves']} leaves); peak {ra['peak_bytes']} B against the "
         f"dry run's per-rank state {la['dryrun_bytes_per_rank']['total']} B")
-    log(f"gpipe ({gp['world']} ranks, {gp['n_layers']} layers, {gp['dtype']}, "
+    log(f"gpipe ({gp['world']} ranks, {gp['route']}, {gp['n_layers']} layers, {gp['dtype']}, "
         f"{gp['microbatches']} x {json.dumps(gp['mb'])}): step {json.dumps(gp['step_s'])} s "
         f"against {gp['sequential_s']:.3f} s in sequence; output {gp['out_err']:.3e}, worst "
-        f"gradient {gp['grad_worst']:.3e}; bytes per rank {json.dumps(gp['bytes'][0])}")
+        f"gradient {gp['grad_worst']:.3e}; bytes per rank {json.dumps(gp['bytes'][0])}; wall "
+        f"{gp['wall_s']:.1f} s")
     sa = shd["launcher"]
-    log(f"shard (a) {sa['arch']} on {sa['world']} ranks (data {sa['world']}, gloo on one card), "
+    log(f"shard (a) {sa['arch']} on {sa['world']} ranks (data {sa['world']}, {sa['route']}), "
         f"{sa['batch']} x {sa['seq']}: {sa['tokens_per_s']} tokens/s, median step "
         f"{sa['median_step_s']} s; step-{sa['steps']} checkpoints bit-identical "
         f"{sa['bit_identical']} ({sa['leaves']} leaves); step 1 loss {sa['losses'][0]} against "
@@ -5280,18 +5458,21 @@ def main(argv=None) -> int:
         f"{json.dumps(sa['rank_init_peak_bytes'])} B")
     for key in ("dense", "mamba"):
         sb = shd[key]
-        log(f"shard (b) {sb['arch']} ({sb['n_layers']} layers, fp32, mesh {json.dumps(sb['mesh'])}): "
+        log(f"shard (b) {sb['arch']} ({sb['n_layers']} layers, fp32, mesh {json.dumps(sb['mesh'])}, "
+            f"{sb['route']}): "
             f"loss {sb['loss_rel']:.3e} relative, worst gradient {sb['grad_worst']:.3e} "
             f"({sb['grad_worst_param']}; bound {sb['grad_bound']:.3e}, the CPU referee's worst "
             f"{sb['referee_worst']}); step "
             f"{json.dumps([round(x, 3) for x in sb['step_s']])} s against {sb['unsharded_step_s']:.3f} s "
             f"unsharded; bytes a rank {json.dumps(sb['bytes'][0])}; peak "
-            f"{json.dumps(sb['rank_peak_bytes'])} B")
-    for arch in MOE_SHARD:
+            f"{json.dumps(sb['rank_peak_bytes'])} B; wall {sb['wall_s']:.1f} s")
+    for arch in (a for a in moe if a != "launches"):
         m = moe[arch]
         log(f"moe_shard {m['arch']} ({m['n_layers']} layers, fp32, {m['moe_mode']}, mesh "
-            f"{json.dumps(m['mesh'])}): loss {m['loss_rel']:.3e} relative, worst gradient "
-            f"{m['grad_worst']:.3e} ({m['grad_worst_param']}); gradient "
+            f"{json.dumps(m['mesh'])}, {m['route']}): loss {m['loss_rel']:.3e} relative, worst "
+            f"gradient "
+            f"{m['grad_worst']:.3e} ({m['grad_worst_param']}; 0 in exact arithmetic "
+            f"{json.dumps(m['zero_leaves'])}); gradient "
             f"{json.dumps([round(x, 3) for x in m['step_s']])} s against {m['unsharded_step_s']:.3f} s "
             f"unsharded; dropped {json.dumps(m['dropped_share'])}; bytes a rank "
             f"{json.dumps(m['bytes'][0])}; peak {json.dumps(m['rank_peak_bytes'])} B; phase "
@@ -5299,7 +5480,7 @@ def main(argv=None) -> int:
     for part in SERVE_PARTS:
         r = srs[part]
         log(f"serve_shard ({part}) {r['arch']} ({r['n_layers']} layers, {r['dtype']}, {r['layout']}, "
-            f"batch {r['batch']}, cache {r['max_len']}): prefill_logits "
+            f"batch {r['batch']}, cache {r['max_len']}, {r['route']}): prefill_logits "
             f"{max(r['prefill_err']):.3e}, decode calls median {r['step_err_median']:.3e}, worst "
             f"{r['step_err_worst']:.3e} of max|logits| (gate {r['tol']}) over {r['calls']} calls; "
             f"outputs the unsharded run's {r['outputs_same']}; decode "
@@ -5315,13 +5496,20 @@ def main(argv=None) -> int:
         f"peak {pa['peak_bytes']} B; {pa['phase_s']:.1f} s")
     log(f"padded_heads (b) {pb['arch']} ({pb['n_layers']} layers, fp32, heads "
         f"{json.dumps(pb['heads'])}, group {pb['group']}, mesh {json.dumps(pb['mesh'])}, "
-        f"{pb['backend']}): prefill_logits {max(pb['prefill_err']):.3e}, decode calls worst "
+        f"{pb['route']}): prefill_logits {max(pb['prefill_err']):.3e}, decode calls worst "
         f"{pb['step_err_worst']:.3e} of max|logits|; compressed to {pb['m']} rows bit for bit "
         f"{pb['compress_equal']}; decode {json.dumps([round(x, 2) for x in pb['step_ms']])} ms a "
         f"call against {pb['unsharded_step_ms']:.2f} unsharded; peak "
         f"{json.dumps(pb['rank_peak_bytes'])} B; {pb['phase_s']:.1f} s")
     log(f"parity at ragged shapes, worst fp32 max_abs_err: "
         f"{json.dumps({**parity_worst, **lm_worst})}")
+    ex = exa["results"]
+    log(f"examples ({exa['phase_s']:.1f} s): seconds {json.dumps(exa['seconds'])}; falkon_endtoend "
+        f"test error {ex['falkon_endtoend']['test_err']:.4f} on the card, "
+        f"{ex['falkon_endtoend@cpu']['test_err']:.4f} with --device cpu; quickstart "
+        f"FALKON-BLESS R^2 {ex['quickstart']['falkon_bless']['r2']:.3f}; serve_krr "
+        f"{ex['serve_krr']['rows_per_s']:.0f} rows/s; train_lm losses "
+        f"{json.dumps([round(v, 4) for _, v in ex['train_lm']])}")
     log("phase seconds: " + json.dumps({name: round(t - marks[i][1], 1)
                                         for i, (name, t) in enumerate(marks[1:])}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

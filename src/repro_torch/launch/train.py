@@ -1,7 +1,8 @@
 """Production training launcher.
 
     python -m repro_torch.launch.train --arch mamba2-370m --steps 200 \\
-        --ckpt-dir /ckpt/run1 [--smoke] [--mesh local|single|multi] [--device cuda|cpu]
+        --ckpt-dir /ckpt/run1 [--smoke] [--mesh local|single|multi] [--device cuda|cpu] \\
+        [--seed 0]
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch mamba2-370m ...
 
 The port of ``repro.launch.train``, on the card unless ``--device cpu``:
@@ -73,7 +74,9 @@ def _restore(ckpt_dir: str, state: TrainState, specs=None, mesh=None) -> tuple[i
     return step, copy_state_(state, host)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list[tuple[int, float]]:
+    """Train as the flags say; returns the logged steps' (step, loss), the
+    steps this run took (a relaunch's from its restored step)."""
     from .. import kernels
 
     t_start = time.perf_counter()
@@ -91,6 +94,7 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--loss-chunks", type=int, default=4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0, help="seed of the weights and the data")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -120,16 +124,16 @@ def main(argv=None) -> None:
         if rank:
             log.setLevel(logging.WARNING)
         shard = (plan.batch_index, plan.batch_ways) if plan is not None else (0, 1)
-        pipe = SyntheticLM(cfg.vocab_size, batch=args.batch, seq=args.seq, seed=0,
+        pipe = SyntheticLM(cfg.vocab_size, batch=args.batch, seq=args.seq, seed=args.seed,
                            device=args.device, shard=shard)
         step = make_train_step(cfg, opt_cfg, loss_chunks=args.loss_chunks)
         specs = init_peak = None
         if plan is None:
-            state = train_state_init(cfg, seed=0, device=args.device)
+            state = train_state_init(cfg, seed=args.seed, device=args.device)
         else:
             pspecs = param_specs(cfg, ctx)
             specs = TrainState(pspecs, opt_state_specs(pspecs))
-            params = init_blocks(cfg, pspecs, mesh, seed=0, device=args.device)
+            params = init_blocks(cfg, pspecs, mesh, seed=args.seed, device=args.device)
             init_peak = torch.cuda.max_memory_allocated() if on_card else None
             for p in params.values():
                 p.requires_grad_(True)
@@ -151,6 +155,7 @@ def main(argv=None) -> None:
         log.info("ready to step in %.1fs (state built%s)", time.perf_counter() - t_start,
                  " and restored" if start else "")
         monitor = HeartbeatMonitor()
+        logged: list[tuple[int, float]] = []
 
         def step_fn(st, i):
             kernels.reset_launch_counts()
@@ -159,8 +164,9 @@ def main(argv=None) -> None:
                 torch.cuda.synchronize()  # the monitor times the step, not its enqueue
             if (i + 1) % args.log_every == 0:
                 launches = {k: v for k, v in kernels.launch_counts().items() if v}
+                logged.append((i + 1, float(m["loss"])))
                 log.info("step %d loss %.4f lr %.2e gnorm %.3f launches %s", i + 1,
-                         float(m["loss"]), float(m["lr"]), float(m["grad_norm"]),
+                         logged[-1][1], float(m["lr"]), float(m["grad_norm"]),
                          json.dumps(launches))
                 if plan is not None:
                     ranks = [None] * dist.get_world_size()
@@ -197,6 +203,7 @@ def main(argv=None) -> None:
             log.info("per-rank: %s", json.dumps(ranks))
         log.info("done: %.1fs, %.0f tok/s, median step %.3fs, %d stragglers",
                  dt, tokens / max(dt, 1e-9), monitor.median, len(monitor.stragglers))
+        return logged
     finally:
         set_mesh_ctx(None)
         if owns_group:

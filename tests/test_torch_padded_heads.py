@@ -257,9 +257,10 @@ _RANK = textwrap.dedent("""
 
     rank, world, tmp, dp, mp = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                 int(sys.argv[4]), int(sys.argv[5]))
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
+    sys.path.insert(0, sys.argv[6])
+    import chip_smoke
+    # placed as chip_smoke.py places its ranks: on the CPU, gloo
+    chip_smoke.rank_setup(rank, world, tmp, *chip_smoke.rank_route(rank, world, "cpu", 1))
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models import LM, param_specs
     from repro_torch.models.attention import bless_compress_cache
@@ -372,7 +373,7 @@ def _spawn(tmp, dp, mp, inputs):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     world = dp * mp
     procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world), str(tmp),
-                               str(dp), str(mp)], env=env, stdout=subprocess.PIPE,
+                               str(dp), str(mp), REPO], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
         outs = [p.communicate(timeout=240)[0] for p in procs]

@@ -101,12 +101,11 @@ _RANK = textwrap.dedent("""
 
     rank, world, tmp, dp, mp = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                 int(sys.argv[4]), int(sys.argv[5]))
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv", rank=rank,
-                            world_size=world)
-    from torch.distributed.device_mesh import init_device_mesh
     sys.path.insert(0, sys.argv[6])
     import chip_smoke
+    # placed as chip_smoke.py places its ranks: on the CPU, gloo
+    chip_smoke.rank_setup(rank, world, tmp, *chip_smoke.rank_route(rank, world, "cpu", 1))
+    from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.checkpoint.ckpt import _leaves
     from repro_torch.launch.roofline import CollectiveMeter
     from repro_torch.models import LM, cache_specs, param_specs
