@@ -1,0 +1,7 @@
+"""Percent of the chip's peaks that the counted work of the sample jobs would need
+over their seconds (the jobs run untraced after the profiler stopped)."""
+from portbench import readers
+
+
+def read(view):
+    return readers.mfu(view, "sample")
